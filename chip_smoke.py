@@ -8,18 +8,22 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
 1. ``device``: the card, its count and nvidia-smi's name and power limit.
 2. ``build``: the three CUDA kernels of ``avlen_tpu_torch/csrc`` compiled in
    parallel (one nvcc each) with ptxas' register and spill report.
-3. ``kernel``: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (the SMT encode with and without goal, in
-   pretraining mode and at an unaligned batch), with max error, tolerance,
-   and CUDA-event times of the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call.
-4. ``reference``: the whole rollout on a tiny world, CUDA (kernels) against
+3. ``reference``: the whole rollout on a tiny world, CUDA (kernels) against
    CPU (plain versions) with the same world, weights and greedy actions.
-5. ``rollout``: ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml at
+4. ``rollout``: ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml at
    its full widths (16 envs, memory 150, d_model 256, 8 heads, RGB-D 64 px,
    16 kHz audio, 16,000-tap RIRs): reset + one rollout of 150 steps, with
    env-steps/s, the kernels' launch counts (zeroed just before), finiteness,
    and success/SPL.
+5. ``kernel``: each kernel against its plain PyTorch version on the card at
+   the main path's shapes (the SMT encode with and without goal, in
+   pretraining mode and at an unaligned batch), with max error, tolerance,
+   and device times of the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call: CUDA events around
+   launches enqueued behind a spin kernel, so that the host's enqueue does
+   not pace them. The partial irfft also reports its cluster size, how many
+   such clusters the card holds at once, its share of the bound, its ptxas
+   registers and spills, and its device time read by ``torch.profiler``.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -42,19 +46,80 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    import torch
+
+    if not _SPIN_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(1000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5):
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls that
+    are enqueued behind a spin kernel lasting twice as long as the same calls
+    took with a synchronise, so the card runs them back to back and the
+    host's enqueue (Python, ctypes, allocation) does not pace the reading.
+    Where the spin ends before the last call is enqueued (a call of many
+    launches fills the driver's launch queue, and the host waits), ``iters``
+    is halved and the reading taken again. A call that waits on the host
+    itself (a copy from pageable host memory synchronises the stream) is
+    never covered: it gets the device time of its kernels and copies from
+    ``torch.profiler`` instead. Returns (ms, how it was measured)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * host_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()  # the spin still ran when the last call was enqueued
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters, "events behind a spin kernel"
+        if iters <= 2:
+            return profiled_ms(fn)[0], "profiler device time (the call waits on the host)"
+        iters //= 2
+
+
+def profiled_ms(fn, kernel: str = "", iters: int = 20):
+    """Device time per call of the kernels and copies whose name holds
+    ``kernel`` (all of them by default), read by ``torch.profiler`` over
+    ``iters`` calls; their count per call; and the names of all the device
+    events seen. The profiler may drop an event at the edge of a session,
+    so a count per call can read a little under the truth."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    us = [e.time_range.elapsed_us() for e in events if kernel in e.name]
+    return (sum(us) / iters / 1e3 if us else None), len(us) / iters, {e.name for e in events}
 
 
 def bound(flops: float, nbytes: float):
@@ -93,25 +158,42 @@ def check_smt(dev, gen):
             fields = dict(kernel="smt_encode", case=case, shape=list(entries.shape),
                           max_abs_err=err, tol=tol)
             if case == "main":
-                ms = time_ms(lambda: smt_cuda.smt_encode(params, entries, valid, goal, nhead))
-                plain_ms = time_ms(lambda: smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead))
+                ms, how = time_ms(lambda: smt_cuda.smt_encode(params, entries, valid, goal, nhead))
+                plain_ms, plain_how = time_ms(lambda: smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead))
                 l = entries.shape[1]
                 f = entries.shape[2]
                 flops = 2 * (b * l * (f * d + 9 * d * d) + 2 * b * l * l * d + 6 * b * d * d + 2 * b * l * d)
                 nbytes = 4 * (entries.numel() + valid.numel() + goal.numel() + b * d
                               + sum(params[n].numel() for n in smt_cuda.KERNEL_WEIGHTS))
                 bound_ms, bound_by = bound(flops, nbytes)
+                timing = dict(ms=how, plain_ms=plain_how)
                 fields.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                              bound_by=bound_by, gflop=flops / 1e9)
+                              bound_by=bound_by, gflop=flops / 1e9, timing=timing)
                 result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by, timing=timing)
         emit("kernel", **fields)
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"smt_encode {case}: max abs err {err} > {tol}")
     return result
 
 
-def check_irfft(dev, gen):
+def ptxas_report(log: str, entry: str):
+    """(registers, spill store bytes, spill load bytes) of the kernel whose
+    mangled name holds ``entry``, from ``nvcc -Xptxas -v`` output."""
+    import re
+
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and entry in ln:
+            block = "\n".join(lines[i : i + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            return (int(regs.group(1)) if regs else None,
+                    int(spill.group(1)) if spill else None, int(spill.group(2)) if spill else None)
+    raise AssertionError(f"no ptxas report for {entry}")
+
+
+def check_irfft(dev, gen, build_log: str):
     import torch
 
     from avlen_tpu_torch.ops import irfft_cuda
@@ -124,21 +206,32 @@ def check_irfft(dev, gen):
     torch.cuda.synchronize()
     scale = max(want.abs().max().item(), 1.0)
     err = (got - want).abs().max().item()
-    tol = 1e-5 * scale  # f32 radix-2 FFT vs cuFFT, relative to the peak sample
-    ms = time_ms(lambda: irfft_cuda.partial_irfft(spec, fft_len, out_start, out_len))
-    plain_ms = time_ms(lambda: irfft_cuda.partial_irfft_plain(spec, fft_len, out_start, out_len))
-    library_ms = time_ms(lambda: torch.fft.irfft(spec, n=fft_len, dim=-1)[..., out_start : out_start + out_len])
+    tol = 1e-5 * scale  # f32 radix-8/16 FFT vs cuFFT, relative to the peak sample
+    kernel = lambda: irfft_cuda.partial_irfft(spec, fft_len, out_start, out_len)  # noqa: E731
+    ms, how = time_ms(kernel)
+    plain_ms, plain_how = time_ms(lambda: irfft_cuda.partial_irfft_plain(spec, fft_len, out_start, out_len))
+    library_ms, lib_how = time_ms(
+        lambda: torch.fft.irfft(spec, n=fft_len, dim=-1)[..., out_start : out_start + out_len])
+    prof_ms, per_call, names = profiled_ms(kernel, "irfft_cluster")
     rows = spec.shape[0] * spec.shape[1]
     nbytes = spec.numel() * 8 + got.numel() * 4
     flops = rows * 2.5 * fft_len * math.log2(fft_len)
     bound_ms, bound_by = bound(flops, nbytes)
+    plan = irfft_cuda.irfft_plan(fft_len, out_start, out_len, rows)
+    regs, spill_st, spill_ld = ptxas_report(build_log, "irfft_cluster")
+    extra = dict(cluster=plan.cluster, max_active_clusters=irfft_cuda.max_active_clusters(plan),
+                 share_of_bound=bound_ms / ms, registers=regs, spill_store_bytes=spill_st,
+                 spill_load_bytes=spill_ld, profiler_ms=prof_ms, kernels_per_call=per_call,
+                 timing=dict(ms=how, plain_ms=plain_how, library_ms=lib_how))
     emit("kernel", kernel="partial_irfft", case="main", shape=list(spec.shape), max_abs_err=err,
          tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-         bound_by=bound_by)
+         bound_by=bound_by, **extra)
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"partial_irfft: max abs err {err} > {tol}")
+    if not 0 < per_call <= 1 or any("irfft_cluster" not in n for n in names):
+        raise AssertionError(f"partial_irfft: {per_call} kernels per call ({names}), want one launch")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def check_spectrogram(dev, gen):
@@ -154,18 +247,20 @@ def check_spectrogram(dev, gen):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 1e-4  # log1p of pooled f32 magnitudes; radix-2 FFT vs cuFFT
-    ms = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
-    plain_ms = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
+    ms, how = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
+    plain_ms, plain_how = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
+    timing = dict(ms=how, plain_ms=plain_how)
     rows = audio.shape[0] * audio.shape[1]
     nbytes = audio.numel() * 4 + got.numel() * 4
     flops = rows * cfg.num_frames * 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
     bound_ms, bound_by = bound(flops, nbytes)
     emit("kernel", kernel="spectrogram", case="main", shape=list(audio.shape), max_abs_err=err,
-         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+         timing=timing)
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"spectrogram: max abs err {err} > {tol}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, timing=timing)
 
 
 def check_reference(dev):
@@ -291,20 +386,23 @@ def main() -> int:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          per_kernel={name: secs for name, secs, _ in built}, ptxas=ptxas)
+    logs = {name: log for name, _, log in built}
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit("precision", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
+    check_reference(dev)
+    launches = run_main_path(dev)
+    # the kernel checks come after the rollout, so that their torch.profiler
+    # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {
         "smt_encode": check_smt(dev, gen),
-        "partial_irfft": check_irfft(dev, gen),
+        "partial_irfft": check_irfft(dev, gen, logs["partial_irfft"]),
         "spectrogram": check_spectrogram(dev, gen),
     }
-    check_reference(dev)
-    launches = run_main_path(dev)
 
     meta = {
         "smt_encode": ("avlen_tpu_torch/csrc/smt_encode.cu", "avlen_tpu/ops/pallas_smt.py:305"),

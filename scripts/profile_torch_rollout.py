@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("smt_encode (ours)", ("gemm_nt", "attn_self", "attn_query", "layernorm")),
-    ("partial_irfft (ours)", ("irfft_pass",)),
+    ("partial_irfft (ours)", ("irfft_cluster",)),
     ("spectrogram (ours)", ("spectrogram_kernel",)),
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "xmma", "cudnn")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass")),

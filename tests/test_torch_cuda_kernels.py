@@ -21,21 +21,43 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("fft_len,rows,out_start,out_len", [
-    (65536, 32, 15999, 16000),  # the savi.yaml audio path
-    (16384, 6, 1999, 8000),
-    (32768, 3, 333, 777),
-    (131072, 2, 23999, 44100),
-])
-def test_partial_irfft_matches_plain(dev, fft_len, rows, out_start, out_len):
-    from avlen_tpu_torch.ops.irfft_cuda import partial_irfft, partial_irfft_plain
+def _irfft_cases():
+    """Every cluster size (fft_len 2^14 .. 2^18 → 1 .. 16 CTAs a row), one
+    row and 32, windows at 0, at the end and at odd offsets."""
+    cases = [(65536, 32, 15999, 16000),  # the savi.yaml audio path
+             (16384, 6, 1999, 8000), (32768, 3, 333, 777), (131072, 2, 23999, 44100)]
+    for log_n in range(14, 19):
+        n = 1 << log_n
+        for rows in (1, 32):
+            cases += [(n, rows, 0, 4000), (n, rows, n - 4001, 4001), (n, rows, n // 4 - 1, n // 4 + 3)]
+    return cases
 
-    g = torch.Generator(device=dev).manual_seed(fft_len)
+
+@pytest.mark.parametrize("fft_len,rows,out_start,out_len", _irfft_cases())
+def test_partial_irfft_matches_plain(dev, fft_len, rows, out_start, out_len):
+    from avlen_tpu_torch.ops.irfft_cuda import (irfft_plan, max_active_clusters, partial_irfft,
+                                                partial_irfft_plain)
+
+    g = torch.Generator(device=dev).manual_seed(fft_len + out_start)
     spec = torch.fft.rfft(torch.randn(rows, fft_len, generator=g, device=dev), dim=-1)
     before = partial_irfft.launches
-    got = partial_irfft(spec, fft_len, out_start, out_len)
+    if max_active_clusters(irfft_plan(fft_len, out_start, out_len, rows)) < 1:
+        # only a non-portable cluster (16 CTAs, fft_len 2^18) may be refused
+        assert fft_len == 1 << 18
+        with pytest.raises(ValueError, match="cannot schedule"):
+            partial_irfft(spec, fft_len, out_start, out_len)
+        return
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            got = partial_irfft(spec, fft_len, out_start, out_len)
+        torch.cuda.synchronize()
+    # one launch per call: nothing but the cluster kernel runs on the card, at
+    # most once a call (the profiler may drop an event at a session's edge)
+    kernels = [e.name for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert 1 <= len(kernels) <= 3 and all("irfft_cluster" in k for k in kernels), kernels
     want = partial_irfft_plain(spec, fft_len, out_start, out_len)
-    assert partial_irfft.launches == before + 1
+    assert partial_irfft.launches == before + 3
     scale = max(want.abs().max().item(), 1.0)
     assert (got - want).abs().max().item() <= 1e-5 * scale
     with pytest.raises(ValueError):
