@@ -24,6 +24,13 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    not pace them. The partial irfft also reports its cluster size, how many
    such clusters the card holds at once, its share of the bound, its ptxas
    registers and spills, and its device time read by ``torch.profiler``.
+   The SMT encode also reports, at the main shape, its launches per call by
+   ``torch.profiler`` (which must be the plan's, in its order) with the
+   device time of each, ptxas' registers and spills of every kernel, its
+   f32 and 3xTF32 operation bounds and its share of the latter, and its time
+   in turns with the SIMT kernel it replaced (``SMT_BASELINE_COMMIT``, where
+   the checkout can give its source); and a timed case at the PPO
+   re-evaluation rows (B=120).
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -38,7 +45,12 @@ import sys
 import time
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# The last commit whose csrc/smt_encode.cu is the SIMT design (f32 FMA GEMMs,
+# 23 launches a call); chip_smoke times it beside the current kernel when the
+# checkout has its git history or build/smt_baseline/smt_encode.cu holds it.
+SMT_BASELINE_COMMIT = "2cb719c70bc55cd4500ba1cb0fe62810bc84c798"
 SAVI_YAML = "configs/semantic_audionav/savi/savi.yaml"
 
 
@@ -102,12 +114,11 @@ def time_ms(fn, iters: int = 50, warmup: int = 5):
         iters //= 2
 
 
-def profiled_ms(fn, kernel: str = "", iters: int = 20):
-    """Device time per call of the kernels and copies whose name holds
-    ``kernel`` (all of them by default), read by ``torch.profiler`` over
-    ``iters`` calls; their count per call; and the names of all the device
-    events seen. The profiler may drop an event at the edge of a session,
-    so a count per call can read a little under the truth."""
+def device_events(fn, iters: int = 20):
+    """The device events (kernels and copies) of ``iters`` calls of ``fn``
+    read by ``torch.profiler`` after one call outside the session, in the
+    order they started. The profiler may drop an event at the edge of a
+    session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,30 +128,158 @@ def profiled_ms(fn, kernel: str = "", iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    return sorted((e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))),
+                  key=lambda e: e.time_range.start)
+
+
+def profiled_ms(fn, kernel: str = "", iters: int = 20):
+    """Device time per call of the events whose name holds ``kernel`` (all
+    of them by default), their count per call, and the names of all the
+    events seen, over ``iters`` calls; a count per call can read a little
+    under the truth (``device_events``)."""
+    events = device_events(fn, iters)
     us = [e.time_range.elapsed_us() for e in events if kernel in e.name]
     return (sum(us) / iters / 1e3 if us else None), len(us) / iters, {e.name for e in events}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def launch_profile(fn, iters: int = 20):
+    """(events per call, [(name, mean µs), ...] by position within a call)
+    over ``iters`` calls of ``fn``. Positions are only meaningful when every
+    call runs the same launches, which the caller checks with the count."""
+    events = device_events(fn, iters)
+    n = len(events) // iters
+    positions = []
+    if n * iters == len(events):
+        for i in range(n):
+            at = events[i::n]
+            positions.append((at[0].name, sum(e.time_range.elapsed_us() for e in at) / iters))
+    return len(events) / iters, positions
+
+
+class SmtLibrary:
+    """An ``smt_encode`` shared library built from any source that keeps the
+    port's C entry (``smt_encode``, ``smt_encode_workspace_floats(B, L, D)``),
+    such as an earlier version of ``csrc/smt_encode.cu``, so two versions can
+    be timed in one process."""
+
+    def __init__(self, src: str, tag: str):
+        import ctypes
+        import hashlib
+        import os
+
+        from avlen_tpu_torch.utils import cuda_build
+
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smt_variants")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"lib{tag}-{digest}.so")
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-I", str(cuda_build.CSRC), "-o", path, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        self.build_log = proc.stdout + proc.stderr
+        lib = ctypes.CDLL(path)
+        lib.smt_encode_workspace_floats.argtypes = [ctypes.c_int] * 3
+        lib.smt_encode_workspace_floats.restype = ctypes.c_longlong
+        lib.smt_encode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.smt_encode.restype = ctypes.c_int
+        self.lib, self.src, self.tag = lib, src, tag
+
+    def __call__(self, params, entries, valid, goal, nhead: int):
+        import ctypes
+
+        import torch
+
+        from avlen_tpu_torch.ops import smt_cuda
+        from avlen_tpu_torch.utils import cuda_build
+
+        b, l, f = entries.shape
+        weights = [params[n].contiguous() for n in smt_cuda.KERNEL_WEIGHTS]
+        d = weights[0].shape[0]
+        dev = entries.device
+        ws = torch.empty(self.lib.smt_encode_workspace_floats(b, l, d), dtype=torch.float32, device=dev)
+        out = torch.empty((b, d), dtype=torch.float32, device=dev)
+        ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+        rc = self.lib.smt_encode(entries.data_ptr(), valid.data_ptr(),
+                                 goal.data_ptr() if goal is not None else None,
+                                 ctypes.cast(ptrs, ctypes.c_void_p), out.data_ptr(), ws.data_ptr(),
+                                 b, l, f, d, nhead, cuda_build.current_stream(dev))
+        cuda_build.check(rc, f"smt_encode ({self.tag})")
+        return out
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_smt(dev, gen):
+def smt_baseline_source():
+    """Path of the SIMT SMT kernel's source (``SMT_BASELINE_COMMIT``), written
+    into the ignored build directory from git where it is not there yet; None
+    where neither is available."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "smt_baseline", "smt_encode.cu")
+    if not os.path.exists(path):
+        try:
+            src = subprocess.run(
+                ["git", "show", f"{SMT_BASELINE_COMMIT}:avlen_tpu_torch/csrc/smt_encode.cu"],
+                cwd=root, capture_output=True, text=True, timeout=60, check=True).stdout
+        except (OSError, subprocess.SubprocessError):
+            return None
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src)
+    return path
+
+
+def smt_flops_bytes(entries, valid, goal, params, d: int):
+    """f32 operations and bytes (inputs and weights read once, the output
+    written once) of one SMT encode."""
+    from avlen_tpu_torch.ops import smt_cuda
+
+    b, l, f = entries.shape
+    flops = 2 * (b * l * (f * d + 9 * d * d) + 2 * b * l * l * d + 6 * b * d * d + 2 * b * l * d)
+    nbytes = 4 * (entries.numel() + valid.numel() + (goal.numel() if goal is not None else 0) + b * d
+                  + sum(params[n].numel() for n in smt_cuda.KERNEL_WEIGHTS))
+    return flops, nbytes
+
+
+def check_smt(dev, gen, build_log: str):
+    """The SMT encode against its plain version in five cases. At the main
+    shape also: its time in turns with the SIMT baseline kernel (baseline,
+    kernel, kernel, baseline), the plain version's time, its launches by
+    torch.profiler (device time of each in call order, and their count and
+    names against the plan), ptxas' registers and spills of each kernel, and
+    both operation bounds (f32 on the CUDA cores; 3xTF32 on the tensor cores,
+    the least time of a route that holds the tolerance, which the share is
+    taken against). At the re-evaluation rows (B=120): its time."""
+    import re
+
     import torch
 
     from avlen_tpu_torch.models.smt import SMTStateEncoder
     from avlen_tpu_torch.ops import smt_cuda
 
-    tol = 1e-4  # f32 both sides; tiled kernel vs cuBLAS summation order
+    tol = 1e-4  # f32 in and out; 3xTF32 tensor-core products vs cuBLAS f32
     d, nhead, feat = 256, 8, 276
+    baseline_src = smt_baseline_source()
+    baseline = SmtLibrary(baseline_src, "baseline") if baseline_src else None
+    ptxas = {}
+    for name in sorted(set(re.findall(r"Compiling entry function '(\w*smt_\w+)'", build_log))):
+        regs, spill_st, spill_ld = ptxas_report(build_log, name)
+        ptxas[name[name.index("smt_"):][:40]] = dict(registers=regs, spill_store_bytes=spill_st,
+                                                    spill_load_bytes=spill_ld)
     result = None
     for case, b, m, goal_on, pre in (
         ("main", 16, 150, True, False),
         ("no_goal", 16, 150, False, False),
         ("pretraining", 16, 150, True, True),
         ("unaligned_b", 5, 37, True, False),
+        ("eval_rows", 120, 150, True, False),  # PPO re-evaluation: 15 steps x 8 envs a mini-batch
     ):
         enc = SMTStateEncoder(feat, d, nhead, pose_indices=(feat - 4, feat), pretraining=pre,
                               generator=torch.Generator().manual_seed(7)).to(dev)
@@ -157,20 +296,50 @@ def check_smt(dev, gen):
             err = (got - want).abs().max().item()
             fields = dict(kernel="smt_encode", case=case, shape=list(entries.shape),
                           max_abs_err=err, tol=tol)
+            kernel = lambda: smt_cuda.smt_encode(params, entries, valid, goal, nhead)  # noqa: E731
+            plain = lambda: smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)  # noqa: E731
+            flops, nbytes = smt_flops_bytes(entries, valid, goal, params, d)
+            bound_f32_ms = bound(flops, nbytes)[0]
+            bound_ms, bound_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
             if case == "main":
-                ms, how = time_ms(lambda: smt_cuda.smt_encode(params, entries, valid, goal, nhead))
-                plain_ms, plain_how = time_ms(lambda: smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead))
-                l = entries.shape[1]
-                f = entries.shape[2]
-                flops = 2 * (b * l * (f * d + 9 * d * d) + 2 * b * l * l * d + 6 * b * d * d + 2 * b * l * d)
-                nbytes = 4 * (entries.numel() + valid.numel() + goal.numel() + b * d
-                              + sum(params[n].numel() for n in smt_cuda.KERNEL_WEIGHTS))
-                bound_ms, bound_by = bound(flops, nbytes)
-                timing = dict(ms=how, plain_ms=plain_how)
-                fields.update(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                              bound_by=bound_by, gflop=flops / 1e9, timing=timing)
-                result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                              bound_ms=bound_ms, bound_by=bound_by, timing=timing)
+                timing = {}
+                base_runs = base_err = None
+                if baseline is not None:
+                    base = lambda: baseline(params, entries, valid, goal, nhead)  # noqa: E731
+                    base_err = (base() - want).abs().max().item()
+                    t = [time_ms(fn) for fn in (base, kernel, kernel, base)]
+                    ms_runs, base_runs = [t[1][0], t[2][0]], [t[0][0], t[3][0]]
+                    timing.update(ms=t[1][1], baseline_ms=t[0][1])
+                else:
+                    ms, timing["ms"] = time_ms(kernel)
+                    ms_runs = [ms]
+                ms = sum(ms_runs) / len(ms_runs)
+                plain_ms, timing["plain_ms"] = time_ms(plain)
+                per_call, launches = launch_profile(kernel)
+                plan = smt_cuda.smt_plan(*entries.shape, d, nhead)
+                want_names = [x.kernel for x in plan.launches]
+                fields.update(
+                    ms=ms, ms_runs=ms_runs, baseline_ms=base_runs, baseline_max_abs_err=base_err,
+                    baseline_source=(f"{SMT_BASELINE_COMMIT[:7]}:avlen_tpu_torch/csrc/smt_encode.cu"
+                                     if baseline is not None else "not available"),
+                    plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                    bound_f32_ms=bound_f32_ms, share_of_bound=bound_ms / ms, gflop=flops / 1e9,
+                    kernels_per_call=per_call, plan_kernels=want_names,
+                    launches_us=[[n[:60], us] for n, us in launches], rows_tile=plan.rows_tile,
+                    ptxas=ptxas, timing=timing)
+                result = {k: fields[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_f32_ms",
+                    "share_of_bound", "baseline_ms", "kernels_per_call", "timing")}
+                names = [n for n, _ in launches]
+                if per_call != len(want_names) or not all(k in n for k, n in zip(want_names, names)):
+                    emit("kernel", **fields)
+                    raise AssertionError(f"smt_encode: {per_call} kernels a call {names}, "
+                                         f"the plan's are {want_names}")
+            elif case == "eval_rows":
+                ms, how = time_ms(kernel)
+                plain_ms, plain_how = time_ms(plain)
+                fields.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_f32_ms=bound_f32_ms,
+                              share_of_bound=bound_ms / ms, timing=dict(ms=how, plain_ms=plain_how))
         emit("kernel", **fields)
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"smt_encode {case}: max abs err {err} > {tol}")
@@ -399,7 +568,7 @@ def main() -> int:
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {
-        "smt_encode": check_smt(dev, gen),
+        "smt_encode": check_smt(dev, gen, logs["smt_encode"]),
         "partial_irfft": check_irfft(dev, gen, logs["partial_irfft"]),
         "spectrogram": check_spectrogram(dev, gen),
     }

@@ -105,6 +105,100 @@ def test_smt_encode_matches_plain(dev, b, m, d, nhead, goal, pretraining):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("b,m,d,nhead,goal,scale,feat", [
+    (1, 150, 256, 8, True, 1.0, 276),  # one env
+    (120, 150, 256, 8, True, 1.0, 276),  # PPO re-evaluation rows: 15 steps x 8 envs a mini-batch
+    (4, 36, 64, 8, False, 1.0, 276),  # L = 37, not a multiple of 16, at head width 8
+    (16, 150, 256, 8, True, 10.0, 276),  # entries x10: the TF32 split over a wider range
+    (3, 40, 128, 4, True, 1.0, 277),  # F = 289: the fusion layer's 4-byte copies
+])
+def test_smt_encode_more_shapes_match_plain(dev, b, m, d, nhead, goal, scale, feat):
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops.smt_cuda import smt_encode, smt_encode_plain
+
+    enc = SMTStateEncoder(feat, d, nhead, pose_indices=(feat - 4, feat),
+                          generator=torch.Generator().manual_seed(m + b)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(b + 1)
+    x = torch.randn(b, feat, generator=g, device=dev)
+    mem = torch.randn(b, m, feat, generator=g, device=dev)
+    mask = (torch.rand(b, m, generator=g, device=dev) > 0.3).float()
+    gl = torch.randn(b, d, generator=g, device=dev) if goal else None
+    with torch.no_grad():
+        entries, valid = enc.entries(x, mem, mask)
+        entries = entries * scale
+        p = dict(enc.named_parameters())
+        got = smt_encode(p, entries, valid, gl, nhead)
+        want = smt_encode_plain(p, entries, valid, gl, nhead)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_smt_encode_scaled_entries_as_close_to_f64_as_f32_gets(dev):
+    """Entries x100 make the encode ill-conditioned (attention logits of ~1e4
+    turn the softmax into a near-argmax), so that the plain f32 version is
+    itself ~1e-3 from an f64 evaluation: the kernel is held to be no further
+    from the f64 result than twice the plain f32 version is."""
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops.smt_cuda import smt_encode, smt_encode_plain
+
+    b, m, d, nhead, feat = 16, 150, 256, 8, 276
+    enc = SMTStateEncoder(feat, d, nhead, pose_indices=(feat - 4, feat),
+                          generator=torch.Generator().manual_seed(m + b)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(b + 1)
+    x = torch.randn(b, feat, generator=g, device=dev)
+    mem = torch.randn(b, m, feat, generator=g, device=dev)
+    mask = (torch.rand(b, m, generator=g, device=dev) > 0.3).float()
+    gl = torch.randn(b, d, generator=g, device=dev)
+    with torch.no_grad():
+        entries, valid = enc.entries(x, mem, mask)
+        entries = entries * 100.0
+        p = dict(enc.named_parameters())
+        got = smt_encode(p, entries, valid, gl, nhead).double()
+        want32 = smt_encode_plain(p, entries, valid, gl, nhead).double()
+        want64 = smt_encode_plain({k: v.double() for k, v in p.items()}, entries.double(), valid.double(),
+                                  gl.double(), nhead)
+    err, err32 = (got - want64).abs().max().item(), (want32 - want64).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 2 * err32, (err, err32)
+
+
+def test_smt_encode_runs_the_plans_launches(dev):
+    """One call is the plan's six hand-written launches, in its order, every
+    one a kernel of csrc/smt_encode.cu (no library GEMM or attention)."""
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops.smt_cuda import smt_encode, smt_plan
+
+    b, m, d, nhead, feat = 16, 150, 256, 8, 276
+    enc = SMTStateEncoder(feat, d, nhead, pose_indices=(feat - 4, feat),
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        entries, valid = enc.entries(torch.randn(b, feat, generator=g, device=dev),
+                                     torch.randn(b, m, feat, generator=g, device=dev),
+                                     torch.ones(b, m, device=dev))
+        goal = torch.randn(b, d, generator=g, device=dev)
+        p = dict(enc.named_parameters())
+        smt_encode(p, entries, valid, goal, nhead)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                smt_encode(p, entries, valid, goal, nhead)
+            torch.cuda.synchronize()
+    names = [e.name for e in sorted((e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))),
+                                    key=lambda e: e.time_range.start)]
+    plan = smt_plan(*entries.shape, d, nhead)
+    kernels = [x.kernel for x in plan.launches]
+    assert len(kernels) == 6
+    # the profiler may miss events at the start of a session: read three whole
+    # calls from the first fusion launch on, and nothing but them after it
+    first = next(i for i, n in enumerate(names) if kernels[0] in n)
+    calls = names[first:]
+    assert len(calls) >= 3 * 6 and len(names) <= 4 * 6, names
+    assert len(calls) % 6 == 0, names
+    for i, n in enumerate(calls):
+        assert kernels[i % 6] in n, (i, n)
+
+
 def test_smt_encode_backward_is_the_plain_gradient(dev):
     """The autograd.Function's forward is the kernel; its backward
     recomputes through the plain version, so gradients equal the plain
