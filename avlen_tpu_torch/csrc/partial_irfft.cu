@@ -43,12 +43,12 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "smem_fft.cuh"
 
 using smem_fft::cmul;
+using smem_fft::dft;
 using smem_fft::expi;
+using smem_fft::unroll;
 
 // Launch plan; mirrored by ops/irfft_cuda.py:_CPlan and filled from irfft_plan.
 struct IrfftPlan {
@@ -63,71 +63,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kElems = 8192;               // complex values per CTA and pass
 constexpr int kVals = kElems / kThreads;   // values each thread holds in registers
-
-// Calls f(std::integral_constant<int, i>) for i in [B, E): indices that the
-// compiler sees as constants, so that register arrays stay in registers.
-template <int B, int E, class F>
-__device__ __forceinline__ void unroll(F&& f) {
-  if constexpr (B < E) {
-    f(std::integral_constant<int, B>{});
-    unroll<B + 1, E>(f);
-  }
-}
-
-__host__ __device__ constexpr float cos_pi8(int r) {  // cos(r*pi/8), 0 <= r <= 4
-  return r == 0 ? 1.f : r == 1 ? 0.92387953251f : r == 2 ? 0.70710678119f
-                                 : r == 3 ? 0.38268343237f : 0.f;
-}
-
-// b * e^{+2 pi i M/16}
-template <int M>
-__device__ __forceinline__ float2 rot16(float2 b) {
-  constexpr int r = M & 3, q = (M >> 2) & 3;
-  if constexpr (r == 0) {
-    if constexpr (q == 0) return b;
-    if constexpr (q == 1) return make_float2(-b.y, b.x);
-    if constexpr (q == 2) return make_float2(-b.x, -b.y);
-    return make_float2(b.y, -b.x);
-  } else {
-    constexpr float c = cos_pi8(r), sn = cos_pi8(4 - r);
-    const float2 w = q == 0 ? make_float2(c, sn) : q == 1 ? make_float2(-sn, c)
-                   : q == 2 ? make_float2(-c, -sn) : make_float2(sn, -c);
-    return cmul(w, b);
-  }
-}
-
-__host__ __device__ constexpr int bitrev_c(int i, int bits) {
-  int j = 0;
-  for (int b = 0; b < bits; ++b) j |= ((i >> b) & 1) << (bits - 1 - b);
-  return j;
-}
-
-// In-register unnormalised inverse DFT of v[OFF .. OFF+R), R = 8 or 16,
-// natural order in and out (radix-2 decimation in time).
-template <int R, int OFF>
-__device__ __forceinline__ void dft(float2 (&v)[kVals]) {
-  constexpr int L = R == 16 ? 4 : 3;
-  unroll<0, R>([&](auto I) {
-    constexpr int i = decltype(I)::value, j = bitrev_c(i, L);
-    if constexpr (j > i) {
-      const float2 t = v[OFF + i];
-      v[OFF + i] = v[OFF + j];
-      v[OFF + j] = t;
-    }
-  });
-  unroll<1, L + 1>([&](auto S) {
-    constexpr int len = 1 << decltype(S)::value;
-    unroll<0, R / len>([&](auto G) {
-      unroll<0, len / 2>([&](auto K) {
-        constexpr int k = decltype(K)::value;
-        constexpr int i0 = OFF + decltype(G)::value * len + k, i1 = i0 + len / 2;
-        const float2 a = v[i0], b = rot16<k * (16 / len)>(v[i1]);
-        v[i0] = make_float2(a.x + b.x, a.y + b.y);
-        v[i1] = make_float2(a.x - b.x, a.y - b.y);
-      });
-    });
-  });
-}
 
 // Element i of column col in a buffer of `cols` interleaved columns (column
 // index fastest), XOR-swizzled so that no access pattern below conflicts.

@@ -19,7 +19,7 @@ PyTorch versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,20 @@ def centered_window(n_fft: int, win_length: int) -> np.ndarray:
     return np.pad(win, (lpad, pad - lpad)).astype(np.float32)
 
 
+_WINDOWS: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def device_window(device: torch.device, n_fft: int, win_length: int) -> torch.Tensor:
+    """``centered_window(n_fft, win_length)`` on ``device``, copied there once
+    per (device, n_fft, win_length): a copy from host memory on every call
+    would make the caller's stream wait on the host."""
+    key = (str(device), n_fft, win_length)
+    window = _WINDOWS.get(key)
+    if window is None:
+        window = _WINDOWS[key] = torch.as_tensor(centered_window(n_fft, win_length), device=device)
+    return window
+
+
 def stft_magnitude(
     x: torch.Tensor,
     n_fft: int = 512,
@@ -72,7 +86,7 @@ def stft_magnitude(
     pad_mode: str = "reflect",
 ) -> torch.Tensor:
     """|STFT| of ``x`` (..., T) → (..., n_fft//2+1, n_frames), librosa-compatible."""
-    window = torch.as_tensor(centered_window(n_fft, win_length), device=x.device)
+    window = device_window(x.device, n_fft, win_length)
     lead, t = x.shape[:-1], x.shape[-1]
     pad = n_fft // 2
     xp = F.pad(x.reshape(-1, 1, t), (pad, pad), mode=pad_mode).reshape(*lead, t + 2 * pad)

@@ -17,20 +17,27 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    and success/SPL.
 5. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main path's shapes (the SMT encode with and without goal, in
-   pretraining mode and at an unaligned batch), with max error, tolerance,
-   and device times of the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call: CUDA events around
-   launches enqueued behind a spin kernel, so that the host's enqueue does
-   not pace them. The partial irfft also reports its cluster size, how many
-   such clusters the card holds at once, its share of the bound, its ptxas
-   registers and spills, and its device time read by ``torch.profiler``.
-   The SMT encode also reports, at the main shape, its launches per call by
-   ``torch.profiler`` (which must be the plan's, in its order) with the
-   device time of each, ptxas' registers and spills of every kernel, its
-   f32 and 3xTF32 operation bounds and its share of the latter, and its time
-   in turns with the SIMT kernel it replaced (``SMT_BASELINE_COMMIT``, where
-   the checkout can give its source); and a timed case at the PPO
-   re-evaluation rows (B=120).
+   pretraining mode and at an unaligned batch; the spectrogram at the
+   rollout's 16 envs, at 256 envs as the spectrogram bank renders them, with
+   a quiet right ear and a silent env, and at 3 envs of 8 kHz), with max
+   error, tolerance, and device times of the kernel, the plain version and,
+   where one PyTorch call computes the same function, that call: CUDA events
+   around launches enqueued behind a spin kernel, so that the host's enqueue
+   does not pace them. The partial irfft also reports its cluster size, how
+   many such clusters the card holds at once, its share of the bound, its
+   ptxas registers and spills, and its device time read by
+   ``torch.profiler``. The SMT encode also reports, at the main shape, its
+   launches per call by ``torch.profiler`` (which must be the plan's, in its
+   order) with the device time of each, ptxas' registers and spills of every
+   kernel, its f32 and 3xTF32 operation bounds and its share of the latter,
+   and its time in turns with the SIMT kernel it replaced
+   (``SMT_BASELINE_COMMIT``, where the checkout can give its source); and a
+   timed case at the PPO re-evaluation rows (B=120). The spectrogram also
+   reports, at 16 and 256 envs, its time in turns with the radix-2 kernel
+   it replaced (``SPEC_BASELINE_COMMIT``, where the checkout can give its source), one
+   ``torch.stft`` of the same audio, kernels per call by ``torch.profiler``
+   (which must be 1), both bounds and the share of the larger, and ptxas'
+   registers and spills of every instantiation.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +58,10 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # 23 launches a call); chip_smoke times it beside the current kernel when the
 # checkout has its git history or build/smt_baseline/smt_encode.cu holds it.
 SMT_BASELINE_COMMIT = "2cb719c70bc55cd4500ba1cb0fe62810bc84c798"
+# The last commit whose csrc/spectrogram.cu is the radix-2 shared-memory
+# design (one block per ear and pooled column, nine barriers), timed beside
+# the current kernel from git or build/spectrogram_baseline/.
+SPEC_BASELINE_COMMIT = "586889d64898006621b202088dd6d3fa3e2dabf7"
 SAVI_YAML = "configs/semantic_audionav/savi/savi.yaml"
 
 
@@ -114,22 +125,30 @@ def time_ms(fn, iters: int = 50, warmup: int = 5):
         iters //= 2
 
 
-def device_events(fn, iters: int = 20):
+def device_events(fn, iters: int = 20, sessions: int = 5):
     """The device events (kernels and copies) of ``iters`` calls of ``fn``
     read by ``torch.profiler`` after one call outside the session, in the
-    order they started. The profiler may drop an event at the edge of a
-    session."""
+    order they started. A session can lose its trace: it may drop an event
+    at its edge, or, now and then, see no device event at all although the
+    calls ran. A session whose count is not a whole number per call is
+    taken again, up to ``sessions`` in all, and the last one is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for session in range(sessions):
+        fn()
         torch.cuda.synchronize()
-    return sorted((e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))),
-                  key=lambda e: e.time_range.start)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))),
+                        key=lambda e: e.time_range.start)
+        if events and len(events) % iters == 0:
+            break
+        print(f"chip_smoke: profiler session {session + 1} saw {len(events)} device events "
+              f"for {iters} calls", file=sys.stderr, flush=True)
+    return events
 
 
 def profiled_ms(fn, kernel: str = "", iters: int = 20):
@@ -156,13 +175,13 @@ def launch_profile(fn, iters: int = 20):
     return len(events) / iters, positions
 
 
-class SmtLibrary:
-    """An ``smt_encode`` shared library built from any source that keeps the
-    port's C entry (``smt_encode``, ``smt_encode_workspace_floats(B, L, D)``),
-    such as an earlier version of ``csrc/smt_encode.cu``, so two versions can
-    be timed in one process."""
+class KernelLibrary:
+    """A shared library built from one CUDA source into ``build/<subdir>/``,
+    such as an earlier version of a kernel or a variant of it, so that two
+    versions can be timed in one process. Quoted includes resolve beside the
+    source first, then in ``avlen_tpu_torch/csrc``."""
 
-    def __init__(self, src: str, tag: str):
+    def __init__(self, src: str, tag: str, subdir: str):
         import ctypes
         import hashlib
         import os
@@ -171,7 +190,7 @@ class SmtLibrary:
 
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smt_variants")
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", subdir)
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"lib{tag}-{digest}.so")
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -180,12 +199,22 @@ class SmtLibrary:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
         self.build_log = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(path)
+        self.lib, self.src, self.tag = ctypes.CDLL(path), src, tag
+
+
+class SmtLibrary(KernelLibrary):
+    """An ``smt_encode`` library from any source that keeps the port's C entry
+    (``smt_encode``, ``smt_encode_workspace_floats(B, L, D)``)."""
+
+    def __init__(self, src: str, tag: str):
+        import ctypes
+
+        super().__init__(src, tag, "smt_variants")
+        lib = self.lib
         lib.smt_encode_workspace_floats.argtypes = [ctypes.c_int] * 3
         lib.smt_encode_workspace_floats.restype = ctypes.c_longlong
         lib.smt_encode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.smt_encode.restype = ctypes.c_int
-        self.lib, self.src, self.tag = lib, src, tag
 
     def __call__(self, params, entries, valid, goal, nhead: int):
         import ctypes
@@ -210,30 +239,83 @@ class SmtLibrary:
         return out
 
 
+class SpectrogramLibrary(KernelLibrary):
+    """A ``spectrogram`` library from any source that keeps the port's C entry
+    ``spectrogram(audio, window, [twiddles,] out, batch, T, n_fft, hop,
+    n_frames, bf, bt, fprime, tprime, stream)``; the radix-2 design
+    (``SPEC_BASELINE_COMMIT``) takes no twiddle table."""
+
+    def __init__(self, src: str, tag: str):
+        import ctypes
+
+        super().__init__(src, tag, "spectrogram_variants")
+        with open(src) as f:
+            entry = f.read().split('extern "C" int spectrogram(', 1)[1]
+        self.takes_twiddles = "twiddles" in entry[: entry.index(")")]
+        fn = self.lib.spectrogram
+        fn.argtypes = [ctypes.c_void_p] * (4 if self.takes_twiddles else 3) + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def __call__(self, audio, cfg):
+        import torch
+
+        from avlen_tpu_torch.ops import spectrogram_cuda
+        from avlen_tpu_torch.ops.audio import device_window
+        from avlen_tpu_torch.utils import cuda_build
+
+        b, _, t = audio.shape
+        plan = spectrogram_cuda.spectrogram_plan(b, t, cfg)
+        dev = audio.device
+        window = device_window(dev, plan.n_fft, cfg.win_length)
+        tables = [window.data_ptr()]
+        if self.takes_twiddles:
+            tables.append(spectrogram_cuda.device_twiddles(dev, plan).data_ptr())
+        out = torch.empty((b, plan.fprime, plan.tprime, 2), dtype=torch.float32, device=dev)
+        rc = self.lib.spectrogram(audio.data_ptr(), *tables, out.data_ptr(), b, t, plan.n_fft, plan.hop,
+                                  plan.n_frames, plan.bf, plan.bt, plan.fprime, plan.tprime,
+                                  cuda_build.current_stream(dev))
+        cuda_build.check(rc, f"spectrogram ({self.tag})")
+        return out
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def smt_baseline_source():
-    """Path of the SIMT SMT kernel's source (``SMT_BASELINE_COMMIT``), written
-    into the ignored build directory from git where it is not there yet; None
-    where neither is available."""
+def baseline_source(commit: str, files, subdir: str):
+    """Path of ``files[0]`` as it was at ``commit``, written with the rest of
+    ``files`` (headers it includes) into ``build/<subdir>/`` from git where
+    it is not there yet; None where neither is available."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(root, "build", "smt_baseline", "smt_encode.cu")
-    if not os.path.exists(path):
+    out_dir = os.path.join(root, "build", subdir)
+    paths = [os.path.join(out_dir, os.path.basename(f)) for f in files]
+    for f, path in zip(files, paths):
+        if os.path.exists(path):
+            continue
         try:
-            src = subprocess.run(
-                ["git", "show", f"{SMT_BASELINE_COMMIT}:avlen_tpu_torch/csrc/smt_encode.cu"],
-                cwd=root, capture_output=True, text=True, timeout=60, check=True).stdout
+            src = subprocess.run(["git", "show", f"{commit}:{f}"], cwd=root, capture_output=True,
+                                 text=True, timeout=60, check=True).stdout
         except (OSError, subprocess.SubprocessError):
             return None
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w") as f:
-            f.write(src)
-    return path
+        os.makedirs(out_dir, exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(src)
+    return paths[0]
+
+
+def smt_baseline_source():
+    """The SIMT SMT kernel's source (``SMT_BASELINE_COMMIT``) or None."""
+    return baseline_source(SMT_BASELINE_COMMIT, ["avlen_tpu_torch/csrc/smt_encode.cu"], "smt_baseline")
+
+
+def spectrogram_baseline_source():
+    """The radix-2 spectrogram kernel's source and header (``SPEC_BASELINE_COMMIT``) or None."""
+    return baseline_source(SPEC_BASELINE_COMMIT, ["avlen_tpu_torch/csrc/spectrogram.cu",
+                                                  "avlen_tpu_torch/csrc/smem_fft.cuh"],
+                           "spectrogram_baseline")
 
 
 def smt_flops_bytes(entries, valid, goal, params, d: int):
@@ -403,33 +485,113 @@ def check_irfft(dev, gen, build_log: str):
                 bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
-def check_spectrogram(dev, gen):
+def spectrogram_flops_bytes(audio, out, cfg):
+    """f32 operations and bytes of one spectrogram call: one n_fft-point
+    complex FFT (5 N log2 N) per frame of both ears, the least transform work
+    for two real frames; the audio, window and twiddles read once and the
+    output written once."""
+    b, _, t = audio.shape
+    frames = 1 + t // cfg.hop_length
+    flops = b * frames * 5 * cfg.n_fft * math.log2(cfg.n_fft)
+    nbytes = (audio.numel() + out.numel() + 3 * cfg.n_fft) * 4
+    return flops, nbytes
+
+
+def check_spectrogram(dev, gen, build_log: str):
+    """The spectrogram against its plain version in four cases: ``main``
+    (the rollout's 16 envs), ``bank_rows`` (256 envs, a row block of the
+    spectrogram bank), ``uneven`` (right ear x1e-3, one silent env) and
+    ``short`` (3 envs of 8 kHz). At main and bank_rows also: its time in
+    turns with the radix-2 kernel it replaced (baseline, kernel, kernel,
+    baseline), the plain version's time, one ``torch.stft`` of the same
+    audio (``stft_call_ms``, the transform alone), kernels per call by
+    torch.profiler (must be 1), and both bounds with the share of the
+    larger. ptxas' registers and spills of every instantiation."""
+    import re
+
     import torch
 
     from avlen_tpu_torch.ops import spectrogram_cuda
-    from avlen_tpu_torch.ops.audio import SpectrogramConfig
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig, device_window
 
-    cfg = SpectrogramConfig(sampling_rate=16000)
-    audio = 0.3 * torch.randn(16, 2, 16000, generator=gen, device=dev)
-    got = spectrogram_cuda.spectrogram(audio, cfg)
-    want = spectrogram_cuda.spectrogram_plain(audio, cfg)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    tol = 1e-4  # log1p of pooled f32 magnitudes; radix-2 FFT vs cuFFT
-    ms, how = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
-    plain_ms, plain_how = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
-    timing = dict(ms=how, plain_ms=plain_how)
-    rows = audio.shape[0] * audio.shape[1]
-    nbytes = audio.numel() * 4 + got.numel() * 4
-    flops = rows * cfg.num_frames * 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
-    bound_ms, bound_by = bound(flops, nbytes)
-    emit("kernel", kernel="spectrogram", case="main", shape=list(audio.shape), max_abs_err=err,
-         tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-         timing=timing)
-    if not math.isfinite(err) or err > tol:
-        raise AssertionError(f"spectrogram: max abs err {err} > {tol}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, timing=timing)
+    tol = 1e-4  # log1p of pooled f32 magnitudes; radix-8 FFT of the packed ears vs cuFFT per ear
+    baseline_src = spectrogram_baseline_source()
+    baseline = SpectrogramLibrary(baseline_src, "baseline") if baseline_src else None
+    ptxas = {}
+    for name in sorted(set(re.findall(r"Compiling entry function '(\w*spectrogram_kernel\w*)'", build_log))):
+        regs, spill_st, spill_ld = ptxas_report(build_log, name)
+        ptxas[name] = dict(registers=regs, spill_store_bytes=spill_st, spill_load_bytes=spill_ld)
+    results = {}
+    for case, b, sr, right_scale, silent_row in (
+        ("main", 16, 16000, 1.0, None),
+        ("bank_rows", 256, 16000, 1.0, None),
+        ("uneven", 16, 16000, 1e-3, 5),
+        ("short", 3, 8000, 1.0, None),
+    ):
+        cfg = SpectrogramConfig(sampling_rate=sr)
+        audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
+        audio[:, 1] *= right_scale
+        if silent_row is not None:
+            audio[silent_row] = 0
+        got = spectrogram_cuda.spectrogram(audio, cfg)
+        want = spectrogram_cuda.spectrogram_plain(audio, cfg)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        fields = dict(kernel="spectrogram", case=case, shape=list(audio.shape), max_abs_err=err, tol=tol)
+        if case in ("main", "bank_rows"):
+            kernel = lambda: spectrogram_cuda.spectrogram(audio, cfg)  # noqa: E731
+            timing = {}
+            base_runs = base_err = None
+            if baseline is not None:
+                base = lambda: baseline(audio, cfg)  # noqa: E731
+                base_err = (base() - want).abs().max().item()
+                t = [time_ms(fn) for fn in (base, kernel, kernel, base)]
+                ms_runs, base_runs = [t[1][0], t[2][0]], [t[0][0], t[3][0]]
+                timing.update(ms=t[1][1], baseline_ms=t[0][1])
+            else:
+                ms, timing["ms"] = time_ms(kernel)
+                ms_runs = [ms]
+            ms = sum(ms_runs) / len(ms_runs)
+            plain_ms, timing["plain_ms"] = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
+            window = device_window(dev, cfg.n_fft, cfg.win_length)  # the Hann centred in the frame
+            flat = audio.reshape(-1, sr)
+            stft_ms, timing["stft_call_ms"] = time_ms(lambda: torch.stft(
+                flat, cfg.n_fft, cfg.hop_length, win_length=cfg.n_fft, window=window, center=True,
+                pad_mode="reflect", return_complex=True))
+            _, per_call, names = profiled_ms(kernel)
+            flops, nbytes = spectrogram_flops_bytes(audio, got, cfg)
+            t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound_ms, bound_by = bound(flops, nbytes)
+            fields.update(
+                ms=ms, ms_runs=ms_runs, baseline_ms=base_runs, baseline_max_abs_err=base_err,
+                baseline_source=(f"{SPEC_BASELINE_COMMIT[:7]}:avlen_tpu_torch/csrc/spectrogram.cu"
+                                 if baseline is not None else "not available"),
+                plain_ms=plain_ms, library_ms=None, stft_call_ms=stft_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+                share_of_bound=bound_ms / ms, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                kernels_per_call=per_call, timing=timing)
+            if case == "main":
+                fields["ptxas"] = ptxas
+            emit("kernel", **fields)
+            results[case] = fields
+            if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
+                raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
+        else:
+            emit("kernel", **fields)
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"spectrogram {case}: max abs err {err} > {tol}")
+        if silent_row is not None and got[silent_row].any():
+            raise AssertionError(f"spectrogram {case}: the silent env's spectrogram is not zero")
+        results.setdefault("errors", {})[case] = err
+    main, bank = results["main"], results["bank_rows"]
+    return dict(
+        {k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_bytes_ms",
+                              "bound_ops_ms", "share_of_bound", "baseline_ms", "stft_call_ms",
+                              "kernels_per_call", "timing")},
+        max_abs_err=max(results["errors"].values()), max_abs_err_by_case=results["errors"],
+        bank_rows={k: bank[k] for k in ("ms", "plain_ms", "baseline_ms", "stft_call_ms", "bound_ms",
+                                        "bound_by", "bound_bytes_ms", "bound_ops_ms", "share_of_bound")},
+        ptxas=ptxas)
 
 
 def check_reference(dev):
@@ -570,7 +732,7 @@ def main() -> int:
     results = {
         "smt_encode": check_smt(dev, gen, logs["smt_encode"]),
         "partial_irfft": check_irfft(dev, gen, logs["partial_irfft"]),
-        "spectrogram": check_spectrogram(dev, gen),
+        "spectrogram": check_spectrogram(dev, gen, logs["spectrogram"]),
     }
 
     meta = {

@@ -111,6 +111,22 @@ def test_plain_spectrogram_matches_jax_and_golden():
     np.testing.assert_array_equal(spectrogram_plain(torch.as_tensor(audio), cfg).numpy(), got)
 
 
+def test_plain_spectrogram_matches_jax_and_pallas_at_savi_rate():
+    """At savi.yaml's 16 kHz the plain version agrees with the JAX XLA path and
+    with the Pallas kernel (interpreted) to f32 rounding."""
+    from avlen_tpu.ops.pallas_spectrogram import spectrogram_pallas
+
+    rng = np.random.RandomState(1)
+    audio = rng.randn(2, 2, 16000).astype(np.float32)
+    got = spectrogram_plain(torch.as_tensor(audio), taudio.SpectrogramConfig(sampling_rate=16000)).numpy()
+    jcfg = jaudio.SpectrogramConfig(sampling_rate=16000, use_pallas=False)
+    xla = np.asarray(jaudio.spectrogram_from_audiogoal(jnp.asarray(audio), jcfg))
+    pallas = np.asarray(spectrogram_pallas(jnp.asarray(audio), jcfg, interpret=True))
+    assert got.shape == xla.shape == pallas.shape == (2, 65, 26, 2)
+    np.testing.assert_allclose(got, xla, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("distractor", [False, True])
 def test_render_audiogoal_matches_jax(worlds, distractor):
     jbank, _, _, _ = worlds

@@ -64,18 +64,80 @@ def test_partial_irfft_matches_plain(dev, fft_len, rows, out_start, out_len):
         partial_irfft(spec[..., :4097], 8192, 0, 100)  # below the kernel's range: raises
 
 
-@pytest.mark.parametrize("batch,sr", [(16, 16000), (3, 8000)])
-def test_spectrogram_matches_plain(dev, batch, sr):
+@pytest.mark.parametrize("case,batch,sr,right_scale,silent_row", [
+    ("main", 16, 16000, 1.0, None),  # the savi.yaml rollout
+    ("bank_rows", 256, 16000, 1.0, None),  # a row block of the spectrogram bank
+    ("uneven", 16, 16000, 1e-3, 5),  # quiet right ear (the pack subtracts the left), a silent env
+    ("short", 3, 8000, 1.0, None),
+])
+def test_spectrogram_matches_plain(dev, case, batch, sr, right_scale, silent_row):
     from avlen_tpu_torch.ops.audio import SpectrogramConfig
     from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram, spectrogram_plain
 
     cfg = SpectrogramConfig(sampling_rate=sr)
     g = torch.Generator(device=dev).manual_seed(batch)
     audio = 0.3 * torch.randn(batch, 2, sr, generator=g, device=dev)
+    audio[:, 1] *= right_scale
+    if silent_row is not None:
+        audio[silent_row] = 0
     got = spectrogram(audio, cfg)
     want = spectrogram_plain(audio, cfg)
     assert got.shape == want.shape == (batch,) + cfg.out_shape
+    assert (got - want).abs().max().item() <= 1e-4, case
+    if silent_row is not None:
+        assert not got[silent_row].any()
+
+
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 1024])
+def test_spectrogram_every_n_fft_matches_plain(dev, n_fft):
+    """Each instantiation of the kernel (radix 2, 4 or 8 first, then 8s)."""
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig
+    from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram, spectrogram_plain
+
+    cfg = SpectrogramConfig(sampling_rate=8000, n_fft=n_fft, win_length=n_fft * 3 // 4, hop_length=n_fft // 4)
+    g = torch.Generator(device=dev).manual_seed(n_fft)
+    audio = 0.3 * torch.randn(5, 2, 8000, generator=g, device=dev)
+    got = spectrogram(audio, cfg)
+    want = spectrogram_plain(audio, cfg)
+    assert got.shape == want.shape == (5,) + cfg.out_shape
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_spectrogram_is_one_launch(dev):
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig
+    from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram
+
+    cfg = SpectrogramConfig(sampling_rate=16000)
+    audio = torch.randn(16, 2, 16000, device=dev)
+    before = spectrogram.launches
+    spectrogram(audio, cfg)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            spectrogram(audio, cfg)
+        torch.cuda.synchronize()
+    # nothing but the kernel runs on the card, at most once a call (the
+    # profiler may drop an event at a session's edge)
+    kernels = [e.name for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert 1 <= len(kernels) <= 3 and all("spectrogram_kernel" in k for k in kernels), kernels
+    assert spectrogram.launches == before + 4
+
+
+def test_spectrogram_raises_on_what_it_does_not_take(dev):
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig
+    from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram
+
+    audio = torch.randn(2, 2, 16000, device=dev)
+    for bad_audio, cfg in (
+        (torch.randn(2, 3, 16000, device=dev), SpectrogramConfig()),  # three channels
+        (audio.double(), SpectrogramConfig()),
+        (audio, SpectrogramConfig(n_fft=2048)),
+        (audio, SpectrogramConfig(n_fft=384)),
+        (audio, SpectrogramConfig(pad_mode="constant")),
+        (audio[..., :200], SpectrogramConfig()),  # too short to reflect-pad by 256
+    ):
+        with pytest.raises(ValueError):
+            spectrogram(bad_audio, cfg)
 
 
 @pytest.mark.parametrize("b,m,d,nhead,goal,pretraining", [
