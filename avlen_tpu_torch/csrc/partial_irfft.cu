@@ -18,7 +18,10 @@
 // Design: one launch; each row is a thread-block cluster of C = h/8192 CTAs
 // (the plan comes from ops/irfft_cuda.py:irfft_plan), so that the whole
 // transform of a row stays on chip and no intermediate goes to device memory.
-// Each CTA holds 8192 values (64 KB) in one shared buffer s.
+// Each CTA holds 8192 values (64 KB) in one shared buffer s. A shorter row
+// (h = 1024, 2048 or 4096: fft_len 2^11 .. 2^13) is one CTA of h/32 threads,
+// each thread holding the same 32 values; its 32-point columns take a radix-8
+// and a radix-4 stage.
 // - Pass 1, CTA c: the columns a in [c*P/C, (c+1)*P/C). The first radix stage
 //   reads X[k] and X[h-k] straight from device memory (coalesced along a),
 //   packs Z[k] and transforms in registers; the Q-point column FFTs end with
@@ -55,14 +58,14 @@ struct IrfftPlan {
   int rows, h, P, Q, cluster, cols1, cols2;
   int nq, rq0, rq1, rq2, rp0, rp1;  // radices of the Q- and P-point stages
   int out_start, out_len, u0, u1;   // window; z rows u in [u0, u1] are written
-  int log_fine, smem_bytes;
+  int log_fine, smem_bytes, threads;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kElems = 8192;               // complex values per CTA and pass
-constexpr int kVals = kElems / kThreads;   // values each thread holds in registers
+// values each thread holds in registers; a CTA has T = 256 threads (8192
+// values, a CTA of a cluster) or h/32 (the one CTA of a short row)
+constexpr int kVals = 32;
 
 // Element i of column col in a buffer of `cols` interleaved columns (column
 // index fastest), XOR-swizzled so that no access pattern below conflicts.
@@ -83,19 +86,19 @@ __device__ __forceinline__ int padded(int m) { return m + (m >> 4); }
 // One radix-R Stockham (decimation-in-time) stage of an n-point inverse FFT
 // on `cols` columns, natural order in and out. Item (col, j), j < n/R, loads
 // x[j + r*n/R], multiplies by w^{r*k} (w = e^{2 pi i/(ns*R)}, k = j mod ns),
-// transforms, and stores y[(j - k)*R + k + r*ns]. Thread t holds items
-// t + q*kThreads in v[q*R .. q*R+R). stage_load reads and transforms every
+// transforms, and stores y[(j - k)*R + k + r*ns]. Thread t of T holds items
+// t + q*T in v[q*R .. q*R+R). stage_load reads and transforms every
 // item of the thread, stage_store writes them: a buffer may be transformed
 // in place with a block barrier between the two. tw holds the tw_n-th roots
 // of unity, ns*R dividing tw_n.
-template <int R, class Load>
+template <int T, int R, class Load>
 __device__ __forceinline__ void stage_load(float2 (&v)[kVals], int n, int ns, int cols,
                                            int log_cols, const float2* tw, int tw_n, Load load) {
   const int per = n / R;
   const int step = tw_n / (ns * R);
   unroll<0, kVals / R>([&](auto Q) {
     constexpr int q = decltype(Q)::value;
-    const int it = threadIdx.x + q * kThreads;
+    const int it = threadIdx.x + q * T;
     const int col = it & (cols - 1), j = it >> log_cols, k = j & (ns - 1);
     unroll<0, R>([&](auto I) {
       constexpr int i = decltype(I)::value;
@@ -110,12 +113,12 @@ __device__ __forceinline__ void stage_load(float2 (&v)[kVals], int n, int ns, in
   });
 }
 
-template <int R, class Store>
+template <int T, int R, class Store>
 __device__ __forceinline__ void stage_store(const float2 (&v)[kVals], int ns, int cols,
                                             int log_cols, Store store) {
   unroll<0, kVals / R>([&](auto Q) {
     constexpr int q = decltype(Q)::value;
-    const int it = threadIdx.x + q * kThreads;
+    const int it = threadIdx.x + q * T;
     const int col = it & (cols - 1), j = it >> log_cols, k = j & (ns - 1);
     const int base = (j - k) * R + k;
     unroll<0, R>([&](auto I) {
@@ -127,13 +130,13 @@ __device__ __forceinline__ void stage_store(const float2 (&v)[kVals], int ns, in
 
 // The same stage out of place: each item is loaded, transformed and stored
 // in turn (a loop, so the code is not repeated for every item).
-template <int R, class Load, class Store>
+template <int T, int R, class Load, class Store>
 __device__ __forceinline__ void stage(int n, int ns, int cols, int log_cols, const float2* tw,
                                       int tw_n, Load load, Store store) {
   const int per = n / R;
   const int step = tw_n / (ns * R);
 #pragma unroll 1
-  for (int it = threadIdx.x; it < cols * per; it += kThreads) {
+  for (int it = threadIdx.x; it < cols * per; it += T) {
     const int col = it & (cols - 1), j = it >> log_cols, k = j & (ns - 1);
     float2 v[kVals];
     unroll<0, R>([&](auto I) {
@@ -154,6 +157,15 @@ __device__ __forceinline__ void stage(int n, int ns, int cols, int log_cols, con
   }
 }
 
+// Calls f(std::integral_constant<int, R>{}) for the stage radix r: 8 or 16
+// in a CTA of 256 threads, 8 or 4 in the one CTA of a short row.
+template <int T, class F>
+__device__ __forceinline__ void with_radix(int r, F&& f) {
+  if (r == 8) f(std::integral_constant<int, 8>{});
+  else if constexpr (T == 256) f(std::integral_constant<int, 16>{});
+  else f(std::integral_constant<int, 4>{});
+}
+
 // Barrier of every thread of the cluster: arrive releases this thread's
 // memory accesses, wait acquires those of all the others.
 __device__ __forceinline__ void cluster_sync() {
@@ -172,7 +184,8 @@ __device__ __forceinline__ float2 load_remote(const float2* p, unsigned rank) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int T>
+__global__ void __launch_bounds__(T, 2)
     irfft_cluster(const float2* __restrict__ spec, float* __restrict__ out, const IrfftPlan p) {
   extern __shared__ float4 smem_raw[];
   // plan fields as locals: the lambdas below capture them by reference
@@ -183,16 +196,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int log_fine = p.log_fine, nfine = 1 << log_fine;
 
   float2* s = reinterpret_cast<float2*>(smem_raw);  // pass-1 result, then pass-2 work
-  float2* twq = s + kElems;                         // e^{2 pi i j/Q}, j < Q
+  float2* twq = s + T * kVals;                      // e^{2 pi i j/Q}, j < Q
   float2* fine = twq + Q;                           // e^{2 pi i m/N}, m < nfine
   float2* coarse = fine + padded(nfine);            // e^{2 pi i m*nfine/N}
 
   const int c = blockIdx.x % p.cluster;  // rank in the row's cluster
   const int row = blockIdx.x / p.cluster;
 
-  for (int j = threadIdx.x; j < Q; j += kThreads) twq[j] = expi(j, Q);
-  for (int j = threadIdx.x; j < nfine; j += kThreads) fine[padded(j)] = expi(j, N);
-  for (int j = threadIdx.x; j < (N >> log_fine); j += kThreads)
+  for (int j = threadIdx.x; j < Q; j += T) twq[j] = expi(j, Q);
+  for (int j = threadIdx.x; j < nfine; j += T) fine[padded(j)] = expi(j, N);
+  for (int j = threadIdx.x; j < (N >> log_fine); j += T)
     coarse[padded(j)] = expi(j << log_fine, N);
   __syncthreads();
   auto exp_n = [&](int m) {  // e^{2 pi i m/N}, 0 <= m < N
@@ -226,16 +239,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (last) y = cmul(y, exp_n(2 * (a0 + col) * vv));  // e^{2 pi i a v/h}
       s[at_cm(vv, col, Q)] = y;
     };
-    if (st == 0) {  // reads device memory only: out of place
-      if (R == 16) stage<16>(Q, ns, cols1, lc1, twq, Q, load_z, store);
-      else stage<8>(Q, ns, cols1, lc1, twq, Q, load_z, store);
-    } else {
-      if (R == 16) stage_load<16>(v, Q, ns, cols1, lc1, twq, Q, load_s1);
-      else stage_load<8>(v, Q, ns, cols1, lc1, twq, Q, load_s1);
-      __syncthreads();  // every read of s done before it is overwritten
-      if (R == 16) stage_store<16>(v, ns, cols1, lc1, store);
-      else stage_store<8>(v, ns, cols1, lc1, store);
-    }
+    with_radix<T>(R, [&](auto RR) {
+      constexpr int r = decltype(RR)::value;
+      if (st == 0) {  // reads device memory only: out of place
+        stage<T, r>(Q, ns, cols1, lc1, twq, Q, load_z, store);
+      } else {
+        stage_load<T, r>(v, Q, ns, cols1, lc1, twq, Q, load_s1);
+        __syncthreads();  // every read of s done before it is overwritten
+        stage_store<T, r>(v, ns, cols1, lc1, store);
+      }
+    });
     ns *= R;
     if (!last) __syncthreads();
   }
@@ -247,11 +260,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     return load_remote(s + at_cm(v0 + col, a & (cols1 - 1), Q), (unsigned)(a >> lc1));
   };
   auto store_s2 = [&](int col, int a, float2 y) { s[at(a, col, cols2)] = y; };
-  if (rp0 == 16) stage_load<16>(v, P, 1, cols2, lc2, twq, Q, load_y);
-  else stage_load<8>(v, P, 1, cols2, lc2, twq, Q, load_y);
-  cluster_sync();  // no CTA reads another's s after this, so s is free
-  if (rp0 == 16) stage_store<16>(v, 1, cols2, lc2, store_s2);
-  else stage_store<8>(v, 1, cols2, lc2, store_s2);
+  with_radix<T>(rp0, [&](auto RR) {
+    constexpr int r = decltype(RR)::value;
+    stage_load<T, r>(v, P, 1, cols2, lc2, twq, Q, load_y);
+    cluster_sync();  // no CTA reads another's s after this, so s is free
+    stage_store<T, r>(v, 1, cols2, lc2, store_s2);
+  });
   __syncthreads();
 
   const float inv_h = 1.0f / (float)h;
@@ -269,11 +283,42 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (n + 1 >= 0 && n + 1 < out_len) o[n + 1] = im;
     }
   };
-  if (rp1 == 16) stage<16>(P, rp0, cols2, lc2, twq, Q, load_s2, store_out);
-  else stage<8>(P, rp0, cols2, lc2, twq, Q, load_s2, store_out);
+  with_radix<T>(rp1, [&](auto RR) {
+    constexpr int r = decltype(RR)::value;
+    stage<T, r>(P, rp0, cols2, lc2, twq, Q, load_s2, store_out);
+  });
 }
 
-int g_smem_attr = 0;  // dynamic shared memory the kernel is allowed so far
+using KernelFn = void (*)(const float2*, float*, IrfftPlan);
+
+// The instantiation for `threads` threads a CTA, or null.
+KernelFn kernel_for(int threads) {
+  switch (threads) {
+    case 32: return irfft_cluster<32>;
+    case 64: return irfft_cluster<64>;
+    case 128: return irfft_cluster<128>;
+    case 256: return irfft_cluster<256>;
+    default: return nullptr;
+  }
+}
+
+// dynamic shared memory each instantiation is allowed so far, by log2(threads/32)
+int g_smem_attr[4] = {};
+
+// Whether the stage radices of `plan` are ones its instantiation runs (see
+// with_radix: any other value would silently run radix 16 or 4) and multiply
+// to Q and P.
+bool radices_fit(const IrfftPlan& p) {
+  auto ok = [&](int r) { return r == 8 || r == (p.threads == 256 ? 16 : 4); };
+  if (p.nq < 1 || p.nq > 3) return false;
+  const int rq[3] = {p.rq0, p.rq1, p.rq2};
+  int q = 1;
+  for (int i = 0; i < p.nq; ++i) {
+    if (!ok(rq[i])) return false;
+    q *= rq[i];
+  }
+  return q == p.Q && ok(p.rp0) && ok(p.rp1) && p.rp0 * p.rp1 == p.P;
+}
 
 }  // namespace
 
@@ -282,16 +327,19 @@ int g_smem_attr = 0;  // dynamic shared memory the kernel is allowed so far
 // cudaOccupancyMaxActiveClusters for clusters of `cluster` CTAs of
 // `threads` threads and smem_bytes each, or minus the CUDA error.
 extern "C" int partial_irfft_max_clusters(int cluster, int smem_bytes, int threads) {
+  const KernelFn kernel = kernel_for(threads);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  int& allowed = g_smem_attr[__builtin_ctz(threads) - 5];
   cudaError_t e = cudaSuccess;
-  if (smem_bytes > g_smem_attr) {
-    e = cudaFuncSetAttribute(irfft_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (smem_bytes > allowed) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(irfft_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) {
       cudaGetLastError();
       return -(int)e;
     }
-    g_smem_attr = smem_bytes;
+    allowed = smem_bytes;
   }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -305,7 +353,7 @@ extern "C" int partial_irfft_max_clusters(int cluster, int smem_bytes, int threa
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, irfft_cluster, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return -(int)e;
@@ -315,10 +363,12 @@ extern "C" int partial_irfft_max_clusters(int cluster, int smem_bytes, int threa
 
 // spec: (rows, h+1) complex64; out: (rows, out_len) f32. One launch of
 // rows clusters on `stream`; partial_irfft_max_clusters must have been called
-// for the plan's smem_bytes first. Returns the launch's CUDA error.
+// for the plan's threads and smem_bytes first. Returns the launch's CUDA error.
 extern "C" int partial_irfft(const void* spec, void* out, const IrfftPlan* plan, void* stream) {
-  if (plan->h != plan->cluster * kElems || plan->P * plan->Q != plan->h)
-    return (int)cudaErrorInvalidValue;  // a plan made for another kElems
+  const KernelFn kernel = kernel_for(plan->threads);
+  if (kernel == nullptr || plan->h != plan->cluster * plan->threads * kVals ||
+      plan->P * plan->Q != plan->h || !radices_fit(*plan))
+    return (int)cudaErrorInvalidValue;  // a plan made for another CTA size or radix set
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -326,12 +376,12 @@ extern "C" int partial_irfft(const void* spec, void* out, const IrfftPlan* plan,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(plan->cluster * plan->rows, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.blockDim = dim3(plan->threads, 1, 1);
   cfg.dynamicSmemBytes = plan->smem_bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, irfft_cluster, static_cast<const float2*>(spec),
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float2*>(spec),
                                            static_cast<float*>(out), *plan);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

@@ -48,14 +48,18 @@ class BeliefPredictorNet(nn.Module):
     def forward(self, spectrogram: torch.Tensor, category: Optional[torch.Tensor] = None):
         """spectrogram (B, F, T, 2); category (B, 21) one-hot for distractor
         mode → (location (B, 2) | None, label logits (B, 21) | None)."""
+        label = self.classifier(spectrogram) if hasattr(self, "classifier") else None
+        return self.location(spectrogram, category), label
+
+    def location(self, spectrogram: torch.Tensor, category: Optional[torch.Tensor] = None):
+        """The location head alone: (B, 2), or None without one."""
+        if not hasattr(self, "predictor"):
+            return None
         x = spectrogram
-        x_loc = x
         if self.has_distractor_sound and category is not None:
             cat_maps = category[:, None, None, :].expand(*x.shape[:3], category.shape[-1])
-            x_loc = torch.cat([x, cat_maps], dim=-1)
-        location = self.predictor(x_loc) if hasattr(self, "predictor") else None
-        label = self.classifier(x) if hasattr(self, "classifier") else None
-        return location, label
+            x = torch.cat([x, cat_maps], dim=-1)
+        return self.predictor(x)
 
 
 def base_to_odom(pg_base: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from avlen_tpu_torch.models.init import linear
 from avlen_tpu_torch.models.policy import (
     CategoricalHead,
     CriticHead,
+    categorical_entropy,
     categorical_log_prob,
     categorical_sample,
 )
@@ -110,6 +111,10 @@ class AudioNavSMTNet(nn.Module):
         att = self.smt(x, memory_feats, memory_valid, goal=self.belief_goal(obs))
         return att, x
 
+    def forward_with_features(self, obs, features, memory_feats, memory_valid):
+        """Like forward, with the current step's features given."""
+        return self.smt(features, memory_feats, memory_valid, goal=self.belief_goal(obs))
+
 
 class SMTPolicy(nn.Module):
     """Actor-critic over AudioNavSMTNet (the goal policy π_g)."""
@@ -127,6 +132,26 @@ class SMTPolicy(nn.Module):
         value = self.critic(att)
         action = logits.argmax(-1) if deterministic else categorical_sample(generator, logits)
         return action, categorical_log_prob(logits, action), value, x, logits
+
+    def evaluate_step(self, obs, prev_actions, memory_feats, memory_valid, actions):
+        """One step of PPO re-evaluation, the towers recomputed."""
+        att, x = self.net(obs, prev_actions, memory_feats, memory_valid)
+        logits = self.action_head(att)
+        value = self.critic(att)
+        return value, categorical_log_prob(logits, actions), categorical_entropy(logits), logits, x
+
+    def evaluate_step_frozen(self, obs, prev_actions, memory_feats, memory_valid, actions):
+        """PPO re-evaluation under SCENE_MEMORY_TRANSFORMER.freeze_encoders
+        (reference policy.py:646-656; savi.yaml sets it). Frozen towers make
+        the step feature a function of (obs, prev_action) alone, so the
+        stored rollout feature ``obs["__feature"]`` is their output: the
+        towers are skipped, get no gradient, and the optimizer leaves them
+        as they are, as the reference's requires_grad=False does."""
+        feature = obs["__feature"]
+        att = self.net.forward_with_features(obs, feature, memory_feats, memory_valid)
+        logits = self.action_head(att)
+        value = self.critic(att)
+        return value, categorical_log_prob(logits, actions), categorical_entropy(logits), logits, feature
 
     def get_value(self, obs, prev_actions, memory_feats, memory_valid):
         att, _ = self.net(obs, prev_actions, memory_feats, memory_valid)

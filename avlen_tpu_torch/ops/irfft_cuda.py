@@ -12,7 +12,8 @@ in and (16, 2, 16000) f32 out, the call moves ~10.4 MB: ~3 µs at 3.35 TB/s.
 The TPU kernel's dense DFT-as-matmul (~2.7 GFLOP, ~40 µs of f32) is not
 carried over. The real inverse of length N is packed into a complex one of
 length h = N/2, split h = P·Q, and each row is one thread-block cluster of
-C = h/8192 CTAs that keeps the whole transform on chip: pass 1 (hermitian
+C = h/8192 CTAs (a row shorter than that, h = 1024 to 4096, is one CTA of
+h/32 threads) that keeps the whole transform on chip: pass 1 (hermitian
 pack + Q-point column FFTs + twiddle) leaves each CTA's 64 KB of columns in
 its shared memory, pass 2 reads them across the cluster (distributed shared
 memory) and runs the P-point transforms, writing only the rows that cover
@@ -31,12 +32,14 @@ import torch
 
 from avlen_tpu_torch.utils import cuda_build
 
-MIN_FFT_LEN = 1 << 14
+MIN_FFT_LEN = 1 << 11
 MAX_FFT_LEN = 1 << 18
-CTA_ELEMS = 8192  # complex64 values per CTA: 64 KB of shared memory per pass
-THREADS = 256  # 32 values per thread, held in registers through each stage
-# radix stages of an n-point column FFT, by log2 n
-RADICES = {6: (8, 8), 7: (16, 8), 8: (16, 16), 9: (8, 8, 8)}
+VALUES = 32  # complex64 values per thread, held in registers through each stage
+THREADS = 256  # threads of a CTA of a cluster
+CTA_ELEMS = THREADS * VALUES  # values per CTA of a cluster: 64 KB of shared memory per pass
+# radix stages of an n-point column FFT, by log2 n (n = 32 only in a
+# short row's one CTA, whose kernel takes radices 8 and 4)
+RADICES = {5: (8, 4), 6: (8, 8), 7: (16, 8), 8: (16, 16), 9: (8, 8, 8)}
 
 
 @dataclass(frozen=True)
@@ -44,7 +47,9 @@ class IrfftPlan:
     """One launch of ``csrc/partial_irfft.cu`` for ``rows`` rows.
 
     Row-level math: ``h = fft_len/2 = P*Q``, input index ``k = a + P*b``,
-    output index ``t = Q*u + v``. CTA ``c`` of a row's cluster owns the
+    output index ``t = Q*u + v``. A CTA holds ``threads * 32`` values:
+    8192 in a cluster of ``h/8192`` CTAs, or the whole row below h = 8192
+    (a cluster of one). CTA ``c`` of a row's cluster owns the
     pass-1 columns ``a`` in ``[c*cols1, (c+1)*cols1)`` and the pass-2
     columns ``v`` in ``[c*cols2, (c+1)*cols2)``; pass 2 writes the rows
     ``u`` in ``[u0, u1]``, where ``z[t]`` gives outputs ``2t`` and ``2t+1``.
@@ -89,18 +94,19 @@ def irfft_plan(fft_len: int, out_start: int, out_len: int, rows: int = 1) -> Irf
     log_q = (logh + 1) // 2
     Q = 1 << log_q
     P = h // Q
-    cluster = h // CTA_ELEMS
+    elems = min(h, CTA_ELEMS)
+    cluster = h // elems
     log_n = logh + 1
     log_fine = (log_n + 1) // 2
     t0 = out_start // 2
     t1 = (out_start + out_len + 1) // 2  # exclusive
     tables = Q + _pad(1 << log_fine) + _pad(fft_len >> log_fine)
-    smem = CTA_ELEMS * 8 + tables * 8
+    smem = elems * 8 + tables * 8
     return IrfftPlan(
         fft_len=fft_len, out_start=out_start, out_len=out_len, rows=rows, h=h, P=P, Q=Q,
         cluster=cluster, cols1=P // cluster, cols2=Q // cluster,
         radices_q=RADICES[log_q], radices_p=RADICES[logh - log_q],
-        u0=t0 // Q, u1=(t1 - 1) // Q, log_fine=log_fine, smem_bytes=smem, threads=THREADS,
+        u0=t0 // Q, u1=(t1 - 1) // Q, log_fine=log_fine, smem_bytes=smem, threads=elems // VALUES,
         grid=(cluster * rows, 1, 1),
     )
 
@@ -131,7 +137,7 @@ class _CPlan(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "rows", "h", "P", "Q", "cluster", "cols1", "cols2", "nq", "rq0", "rq1", "rq2", "rp0", "rp1",
-        "out_start", "out_len", "u0", "u1", "log_fine", "smem_bytes",
+        "out_start", "out_len", "u0", "u1", "log_fine", "smem_bytes", "threads",
     )]
 
 
@@ -139,7 +145,7 @@ def _c_plan(plan: IrfftPlan) -> _CPlan:
     rq = plan.radices_q + (0,) * (3 - len(plan.radices_q))
     return _CPlan(plan.rows, plan.h, plan.P, plan.Q, plan.cluster, plan.cols1, plan.cols2,
                   len(plan.radices_q), *rq, *plan.radices_p, plan.out_start, plan.out_len,
-                  plan.u0, plan.u1, plan.log_fine, plan.smem_bytes)
+                  plan.u0, plan.u1, plan.log_fine, plan.smem_bytes, plan.threads)
 
 
 _MAX_CLUSTERS: Dict[Tuple[int, int], int] = {}
@@ -149,8 +155,8 @@ def max_active_clusters(plan: IrfftPlan) -> int:
     """``cudaOccupancyMaxActiveClusters`` for the plan's cluster size and
     shared memory on the current card. The first call also sets the kernel's
     attributes (dynamic shared memory, non-portable cluster size), once per
-    process."""
-    key = (plan.cluster, plan.smem_bytes)
+    process and CTA size."""
+    key = (plan.cluster, plan.smem_bytes, plan.threads)
     if key not in _MAX_CLUSTERS:
         n = _lib().partial_irfft_max_clusters(plan.cluster, plan.smem_bytes, plan.threads)
         if n < 0 and plan.cluster <= 8:  # a portable cluster size: a real fault

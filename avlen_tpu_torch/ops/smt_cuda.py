@@ -28,11 +28,12 @@ agree.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -265,6 +266,21 @@ def smt_encode(
 
 
 smt_encode.launches = 0
+
+
+@contextlib.contextmanager
+def wrapped_passes(forward: Callable, backward: Callable):
+    """Within the block the kernel's launch runs as ``forward(launch)`` and
+    the backward (the plain recompute) as ``backward(backward)``: timers or
+    profiler labels around the two halves of a training step's encode.
+    Both are restored on exit."""
+    global _launch
+    launch, bwd = _launch, _SMTEncode.backward
+    _launch, _SMTEncode.backward = forward(launch), staticmethod(backward(bwd))
+    try:
+        yield
+    finally:
+        _launch, _SMTEncode.backward = launch, staticmethod(bwd)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -23,3 +23,14 @@ class RolloutBatch(NamedTuple):
     metrics: Dict[str, torch.Tensor]  # (T, B) per-step measures
     initial_hidden: Any  # recurrent state / memory before step 0
     bootstrap_value: torch.Tensor  # (B,)
+
+    def to(self, device) -> "RolloutBatch":
+        """The batch with every tensor on ``device``."""
+        def move(x):
+            if isinstance(x, dict):
+                return {k: move(v) for k, v in x.items()}
+            if isinstance(x, tuple):
+                return type(x)(*(move(v) for v in x))
+            return x.to(device)
+
+        return move(self)

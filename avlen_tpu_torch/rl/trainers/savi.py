@@ -1,18 +1,20 @@
-"""SAVi trainer: SMT policy + belief predictor, the acting (rollout) side.
+"""SAVi trainer: SMT policy + belief predictor PPO.
 
-PyTorch counterpart of ``SaviTrainer._setup`` and its ``collect`` closure in
-``avlen_tpu/rl/trainers/savi.py`` (reference ppo_trainer.py:93-1311, plain
-SAVi path): it builds the batched env and the networks from the config and
-collects rollouts in which the memory-150 SMT policy acts step by step,
-with the belief predictor filling the category/location beliefs before each
-act. PPO, GAE, the optimizers, checkpoints, ``train()`` and ``eval()`` are
-the next slice of the port.
+PyTorch counterpart of ``SaviTrainer`` in ``avlen_tpu/rl/trainers/savi.py``
+(reference ppo_trainer.py:93-1311, plain SAVi path): ``_setup`` builds the
+batched env, the networks and the optimizers from the config; ``collect``
+runs a rollout in which the memory-150 SMT policy acts step by step, with
+the belief predictor filling the category/location beliefs before each act;
+``update`` runs GAE, the PPO update with batched ring re-evaluation, and the
+belief predictor's online location regression (ppo_trainer.py:959-1032) on
+that rollout. Checkpoints, ``train()`` and ``eval()`` are the next slice of
+the port.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -23,7 +25,10 @@ from avlen_tpu_torch.models.belief_predictor import (
 )
 from avlen_tpu_torch.models.memory import init_memory
 from avlen_tpu_torch.models.smt_policy import AudioNavSMTNet, SMTPolicy
-from avlen_tpu_torch.rl.rollout_smt import SMTCarry, collect_rollout_smt
+from avlen_tpu_torch.rl.gae import compute_gae
+from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
+from avlen_tpu_torch.rl.rollout import RolloutBatch
+from avlen_tpu_torch.rl.rollout_smt import SMTCarry, collect_rollout_smt, evaluate_sequence_smt_batched
 from avlen_tpu_torch.sim.builder import construct_batched_env
 
 
@@ -35,18 +40,23 @@ class SaviTrainer:
     def _setup(self, num_envs: Optional[int] = None):
         cfg = self.config
         dev = self.device
+        if cfg.TPU.PRECISION != "float32":
+            raise NotImplementedError(
+                f"TPU.PRECISION {cfg.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far"
+            )
+        self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
         bp_cfg = cfg.RL.PPO.BELIEF_PREDICTOR
-        for path in (
-            cfg.RL.DDPPO.pretrained_weights if cfg.RL.DDPPO.pretrained else "",
-            smt_cfg.pretrained_path if smt_cfg.use_pretrained else "",
-            bp_cfg.pretrained_path,
-        ):
-            if path and not os.path.exists(path):
+        if not smt_cfg.batched_eval:
+            raise NotImplementedError(
+                "SCENE_MEMORY_TRANSFORMER.batched_eval False: the PyTorch port re-evaluates "
+                "the ring batched only (the same outputs as the sequential replay)"
+            )
+        for path in pretrained_paths(cfg):
+            if not os.path.exists(path):
                 raise FileNotFoundError(f"configured pretrained weights not found: {path}")
-            if path:
-                raise NotImplementedError("checkpoint loading is the next slice of the PyTorch port")
+            raise NotImplementedError("checkpoint loading is the next slice of the PyTorch port")
 
         self.env = construct_batched_env(
             cfg, num_envs=num_envs, with_depth=True, with_rgb=True,
@@ -83,7 +93,14 @@ class SaviTrainer:
                 has_distractor_sound=self.env.config.has_distractor,
                 generator=gen,
             ).to(dev).eval()
+        self.optimizer = make_optimizer(self.policy.parameters(), self.ppo_cfg)
+        self.belief_optimizer = None
+        if self.belief_net is not None and bp_cfg.online_training:
+            # optax.adam(lr): no clipping, eps 1e-8
+            self.belief_optimizer = torch.optim.Adam(self.belief_net.parameters(), lr=bp_cfg.lr)
         self.sample_generator = torch.Generator(device=dev).manual_seed(cfg.SEED)
+        # the minibatch permutations (the JAX trainer's PRNGKey(SEED + 1))
+        self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
         self.carry = self.reset()
 
     def reset(self) -> SMTCarry:
@@ -135,3 +152,78 @@ class SaviTrainer:
         if own:
             self.carry = carry
         return carry, batch
+
+    def evaluate_actions(self, obs, initial_memory, masks, actions):
+        """(values, log_probs, entropy, logits), each (T, Bm, ...), of a
+        minibatch's stored steps under the current parameters."""
+        smt_cfg = self.config.RL.PPO.SCENE_MEMORY_TRANSFORMER
+        # freeze_encoders (savi.yaml): the stored features are the frozen
+        # towers' outputs, so re-evaluation skips the towers
+        step = self.policy.evaluate_step_frozen if smt_cfg.freeze_encoders else self.policy.evaluate_step
+        return evaluate_sequence_smt_batched(step, obs, initial_memory, masks, actions,
+                                             chunk=smt_cfg.batched_eval_chunk)
+
+    def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+        """GAE, one PPO update and (with online belief training) one belief
+        step on ``batch``, in place on the parameters. ``perms`` (one
+        permutation of the env slots per epoch) replaces the draws from the
+        trainer's PPO generator. Returns the averaged losses as tensors, with
+        ``belief_loss`` under online belief training."""
+        cfg = self.ppo_cfg
+        adv, ret = compute_gae(
+            batch.rewards, batch.values, batch.bootstrap_value,
+            1.0 - batch.dones.float(), cfg.gamma, cfg.tau,
+        )
+        stats = ppo_update(batch, adv, ret, self.evaluate_actions, self.optimizer, cfg,
+                           generator=self.ppo_generator, perms=perms)
+        if self.belief_optimizer is not None:
+            stats["belief_loss"] = self.belief_train_step(batch)
+        return stats
+
+    def belief_train_step(self, batch: RolloutBatch) -> torch.Tensor:
+        """One Adam step of the location regression: the MSE to the goal
+        direction over the T·B steps whose spectrogram is not silent
+        (train_belief_predictor, ppo_trainer.py:959-1032). Returns the loss."""
+        t, b = batch.actions.shape
+        spec = batch.obs["spectrogram"].reshape((t * b,) + batch.obs["spectrogram"].shape[2:])
+        cat = batch.obs.get("category")
+        cat = cat.reshape(t * b, -1) if cat is not None else None
+        target = self._location_targets(batch).reshape(t * b, 2)
+        weights = (spec.abs().sum(dim=(1, 2, 3)) != 0).float()
+        loc = self.belief_net.location(spec, cat)
+        err = ((loc - target) ** 2).sum(-1) * weights
+        loss = err.sum() / torch.clamp(weights.sum(), min=1.0)
+        self.belief_optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.belief_optimizer.step()
+        return loss.detach()
+
+    def _location_targets(self, batch: RolloutBatch) -> torch.Tensor:
+        """The goal direction in the agent's frame, the location head's
+        regression target."""
+        obs = batch.obs
+        if "pointgoal_with_gps_compass" in obs:
+            return obs["pointgoal_with_gps_compass"]
+        # training the location head against zeros would silently corrupt
+        # the belief predictor: require the sensor when the head trains
+        raise ValueError(
+            "BELIEF_PREDICTOR.use_location_belief online training requires the "
+            "POINTGOAL_WITH_GPS_COMPASS_SENSOR in TASK.SENSORS (no ground-truth "
+            "goal direction available for the regression target)"
+        )
+
+
+def pretrained_paths(cfg) -> List[str]:
+    """The pretrained weights ``_setup`` loads, chosen as the JAX trainer
+    chooses them: ``DDPPO.pretrained_weights`` when DDPPO.pretrained is on,
+    else the SMT ``pretrained_path`` under use_pretrained; and the belief
+    predictor's ``pretrained_path`` only under use_belief_predictor."""
+    smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
+    paths = []
+    if cfg.RL.DDPPO.pretrained and cfg.RL.DDPPO.pretrained_weights:
+        paths.append(cfg.RL.DDPPO.pretrained_weights)
+    elif smt_cfg.use_pretrained and smt_cfg.pretrained_path:
+        paths.append(smt_cfg.pretrained_path)
+    if cfg.RL.PPO.use_belief_predictor and cfg.RL.PPO.BELIEF_PREDICTOR.pretrained_path:
+        paths.append(cfg.RL.PPO.BELIEF_PREDICTOR.pretrained_path)
+    return paths

@@ -9,13 +9,33 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
 2. ``build``: the three CUDA kernels of ``avlen_tpu_torch/csrc`` compiled in
    parallel (one nvcc each) with ptxas' register and spill report.
 3. ``reference``: the whole rollout on a tiny world, CUDA (kernels) against
-   CPU (plain versions) with the same world, weights and greedy actions.
-4. ``rollout``: ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml at
+   CPU (plain versions) with the same world, weights and greedy actions: at
+   8 kHz with 2,000-tap RIRs (a 16,384-point convolution) and at 4 kHz with
+   400 taps (8,192 points, the irfft's one-CTA plan).
+4. ``update_reference``: one ``SaviTrainer.update`` (GAE, PPO with batched
+   ring re-evaluation, the belief step) on the 8 kHz tiny world's rollout,
+   on the CPU (plain versions) and on the card (kernels), from the same
+   parameters with the same minibatch permutations: losses within 1e-3, the
+   gradients held in each Adam's first moment within 5e-4 + 1e-3·|g|, policy
+   parameters within 1e-5, belief parameters within 1e-5 where the gradient
+   fixes the sign of Adam's step.
+5. ``rollout``: ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml at
    its full widths (16 envs, memory 150, d_model 256, 8 heads, RGB-D 64 px,
    16 kHz audio, 16,000-tap RIRs): reset + one rollout of 150 steps, with
    env-steps/s, the kernels' launch counts (zeroed just before), finiteness,
    and success/SPL.
-5. ``kernel``: each kernel against its plain PyTorch version on the card at
+6. ``update``: the same trainer trains: ``UPDATE_ROUNDS`` rounds of collect +
+   update (savi.yaml: 4 epochs x 2 minibatches x 10 chunks of 15 steps, the
+   SMT encode at 120 rows, frozen encoders, online belief training), with
+   the kernels' launch counts over the rounds (zeroed just before; the
+   ``kernels`` line reports these), ms per update split into the SMT
+   kernel's forwards, its plain recompute + backward, the belief step and
+   the rest (gathers, heads, GAE, optimizer), each from CUDA events on the
+   stream; training env-steps/s = T·B / (rollout + update seconds); peak
+   device memory. It fails unless the stats are finite, the SMT and heads
+   moved, the towers did not, and every update launched the SMT kernel at
+   least 80 times at 120 rows.
+7. ``kernel``: each kernel against its plain PyTorch version on the card at
    the main path's shapes (the SMT encode with and without goal, in
    pretraining mode and at an unaligned batch; the spectrogram at the
    rollout's 16 envs, at 256 envs as the spectrogram bank renders them, with
@@ -37,7 +57,9 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    it replaced (``SPEC_BASELINE_COMMIT``, where the checkout can give its source), one
    ``torch.stft`` of the same audio, kernels per call by ``torch.profiler``
    (which must be 1), both bounds and the share of the larger, and ptxas'
-   registers and spills of every instantiation.
+   registers and spills of every instantiation. The partial irfft also at
+   the short worlds' lengths (2,048, 4,096 and 8,192 points, one CTA a row),
+   each with ptxas' registers and spills of the instantiation it runs.
 
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +85,7 @@ SMT_BASELINE_COMMIT = "2cb719c70bc55cd4500ba1cb0fe62810bc84c798"
 # the current kernel from git or build/spectrogram_baseline/.
 SPEC_BASELINE_COMMIT = "586889d64898006621b202088dd6d3fa3e2dabf7"
 SAVI_YAML = "configs/semantic_audionav/savi/savi.yaml"
+UPDATE_ROUNDS = 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -469,7 +492,7 @@ def check_irfft(dev, gen, build_log: str):
     flops = rows * 2.5 * fft_len * math.log2(fft_len)
     bound_ms, bound_by = bound(flops, nbytes)
     plan = irfft_cuda.irfft_plan(fft_len, out_start, out_len, rows)
-    regs, spill_st, spill_ld = ptxas_report(build_log, "irfft_cluster")
+    regs, spill_st, spill_ld = ptxas_report(build_log, f"irfft_clusterILi{plan.threads}E")
     extra = dict(cluster=plan.cluster, max_active_clusters=irfft_cuda.max_active_clusters(plan),
                  share_of_bound=bound_ms / ms, registers=regs, spill_store_bytes=spill_st,
                  spill_load_bytes=spill_ld, profiler_ms=prof_ms, kernels_per_call=per_call,
@@ -481,8 +504,29 @@ def check_irfft(dev, gen, build_log: str):
         raise AssertionError(f"partial_irfft: max abs err {err} > {tol}")
     if not 0 < per_call <= 1 or any("irfft_cluster" not in n for n in names):
         raise AssertionError(f"partial_irfft: {per_call} kernels per call ({names}), want one launch")
+    short = {}
+    # the 1, 2 and 4 kHz worlds (128, 200 and 400 taps): one CTA a row
+    for n, start, length in ((2048, 127, 1000), (4096, 199, 2000), (8192, 399, 4000)):
+        sp = torch.fft.rfft(torch.randn(16, 2, n, generator=gen, device=dev), dim=-1)
+        got_n = irfft_cuda.partial_irfft(sp, n, start, length)
+        want_n = irfft_cuda.partial_irfft_plain(sp, n, start, length)
+        torch.cuda.synchronize()
+        tol_n = 1e-5 * max(want_n.abs().max().item(), 1.0)
+        err_n = (got_n - want_n).abs().max().item()
+        ms_n, how_n = time_ms(lambda: irfft_cuda.partial_irfft(sp, n, start, length))
+        plain_n, _ = time_ms(lambda: irfft_cuda.partial_irfft_plain(sp, n, start, length))
+        plan_n = irfft_cuda.irfft_plan(n, start, length, 32)
+        bound_n, bound_by_n = bound(32 * 2.5 * n * math.log2(n), sp.numel() * 8 + got_n.numel() * 4)
+        regs_n, spill_st_n, spill_ld_n = ptxas_report(build_log, f"irfft_clusterILi{plan_n.threads}E")
+        short[n] = dict(max_abs_err=err_n, tol=tol_n, ms=ms_n, plain_ms=plain_n, bound_ms=bound_n,
+                        bound_by=bound_by_n, threads=plan_n.threads, registers=regs_n,
+                        spill_store_bytes=spill_st_n, spill_load_bytes=spill_ld_n)
+        emit("kernel", kernel="partial_irfft", case=f"fft_len_{n}", shape=list(sp.shape), **short[n],
+             cluster=plan_n.cluster, timing=how_n)
+        if not math.isfinite(err_n) or err_n > tol_n:
+            raise AssertionError(f"partial_irfft at fft_len {n}: max abs err {err_n} > {tol_n}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, **extra)
+                bound_ms=bound_ms, bound_by=bound_by, **extra, short_rows=short)
 
 
 def spectrogram_flops_bytes(audio, out, cfg):
@@ -594,31 +638,41 @@ def check_spectrogram(dev, gen, build_log: str):
         ptxas=ptxas)
 
 
-def check_reference(dev):
-    """The whole rollout on a tiny world: CUDA (kernels) vs CPU (plain)."""
-    import torch
-
+def tiny_config(sampling_rate: int = 8000, rir_length: int = 2000):
+    """savi.yaml on a tiny world: 3 envs, memory 8, d_model 32, 4 heads."""
     from avlen_tpu_torch.config import get_config
-    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 
-    cfg = get_config(SAVI_YAML, opts=[
+    return get_config(SAVI_YAML, opts=[
         "TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "4",
         "TASK_CONFIG.DATASET.SYNTHETIC.NUM_EPISODES", "20",
-        "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", "2000",
+        "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", str(rir_length),
         "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "32",
-        "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", "8000",
+        "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", str(sampling_rate),
         "TASK_CONFIG.SIMULATOR.AUDIO.CACHE_SPECTROGRAMS", "False",
         "NUM_PROCESSES", "3",
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.memory_size", "8",
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size", "32",
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.nhead", "4",
     ])
+
+
+def check_reference(dev, sampling_rate: int = 8000, rir_length: int = 2000):
+    """The whole rollout on a tiny world: CUDA (kernels) vs CPU (plain)."""
+    import torch
+
+    from avlen_tpu_torch.ops.irfft_cuda import partial_irfft
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+
+    cfg = tiny_config(sampling_rate, rir_length)
     steps = 12
     batches = {}
     for d in ("cpu", dev):
         trainer = SaviTrainer(cfg, device=d)
         trainer._setup()
+        before = partial_irfft.launches
         _, batches[str(d)] = trainer.collect(deterministic=True, n=steps)
+        irfft_launches = partial_irfft.launches - before
+    fft_len = trainer.env.bank.rir.fft_len
     ref, got = batches["cpu"], batches[str(dev)]
     same = (ref.actions == got.actions.cpu()).all(dim=1)
     prefix = int(same.long().cumprod(0).sum())  # steps before any greedy action differs
@@ -630,9 +684,106 @@ def check_reference(dev):
     }
     spec_err = (got.obs["spectrogram"].cpu()[:prefix] - ref.obs["spectrogram"][:prefix]).abs().max().item()
     tol = 1e-3
-    emit("reference", steps=steps, agreeing_steps=prefix, spectrogram_err=spec_err, tol=tol, **errs)
+    emit("reference", sampling_rate=sampling_rate, rir_length=rir_length, fft_len=fft_len, steps=steps,
+         agreeing_steps=prefix, spectrogram_err=spec_err, tol=tol, irfft_launches=irfft_launches, **errs)
     if max(errs.values()) > tol or spec_err > tol:
         raise AssertionError(f"reference: CUDA vs CPU rollout differ {errs} spectrogram {spec_err}")
+    if irfft_launches < steps:
+        raise AssertionError(f"reference: the irfft kernel ran {irfft_launches} times in {steps} steps")
+
+
+GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3  # gradients, as the CPU tests hold them against JAX
+POLICY_PARAM_TOL = 1e-5  # policy parameters after an update (the H100 read 6e-8)
+SETTLED_GRAD = 2e-3  # |g| above which both devices' Adam steps take the same sign
+SETTLED_PARAM_TOL = 1e-5  # belief parameters where |g| > SETTLED_GRAD
+
+
+def adam_gradients(module, adam):
+    """name -> exp_avg / (1 - beta1) of each parameter of ``module`` under the
+    torch Adam ``adam``, zeros where it never stepped: after one step the
+    gradient that step took, after more the same mix of every step's."""
+    import torch
+
+    beta1 = adam.param_groups[0]["betas"][0]
+    return {n: adam.state[p]["exp_avg"] / (1 - beta1) if "exp_avg" in adam.state.get(p, {})
+            else torch.zeros_like(p) for n, p in module.named_parameters()}
+
+
+def share_of_tol(got, want, tol) -> float:
+    """max |got - want| / tol over the entries (tol a number or a tensor)."""
+    return ((got.detach().cpu() - want.detach().cpu()).abs() / tol).max().item()
+
+
+def check_update_reference(dev, cfg=None, n: int = 12):
+    """One update on a tiny world's rollout of ``n`` steps (default: the
+    8 kHz world): CUDA (the SMT kernel forward, its plain-recompute backward)
+    vs CPU (plain), from the same parameters with the same permutations.
+    Losses within 1e-3; the gradients each Adam's first moment holds within
+    5e-4 + 1e-3·|g|; policy parameters within 1e-5; belief parameters within
+    1e-5 where |g| > 2e-3 and within 2·lr + 1e-4 elsewhere (Adam's first
+    step, lr·g/(|g| + 1e-8), takes either sign on a gradient near rounding).
+    Returns the phase's fields."""
+    import torch
+
+    from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+
+    cfg = cfg or tiny_config()
+    ref_tr, got_tr = SaviTrainer(cfg, device="cpu"), SaviTrainer(cfg, device=dev)
+    ref_tr._setup()
+    got_tr._setup()
+    _, batch = ref_tr.collect(n=n)
+    gen = torch.Generator().manual_seed(11)
+    b = batch.actions.shape[1]
+    perms = [torch.randperm(b, generator=gen) for _ in range(ref_tr.ppo_cfg.ppo_epoch)]
+    ref = ref_tr.update(batch, perms=perms)
+    before = smt_cuda.smt_encode.launches
+    got = got_tr.update(batch.to(dev), perms=perms)
+    launches = smt_cuda.smt_encode.launches - before
+    loss_err = {k: abs(got[k].item() - ref[k].item()) for k in ref}
+    bp_lr = cfg.RL.PPO.BELIEF_PREDICTOR.lr
+
+    def trained(tr):
+        return {"policy": (tr.policy, tr.optimizer.adam), "belief": (tr.belief_net, tr.belief_optimizer)}
+
+    errs = {}
+    for part, (module, adam) in trained(ref_tr).items():
+        got_module, got_adam = trained(got_tr)[part]
+        g_ref, g_got = adam_gradients(module, adam), adam_gradients(got_module, got_adam)
+        got_params = dict(got_module.named_parameters())
+        e = dict(grad_share_of_tol=0.0, param_share_of_tol=0.0, param_max_abs_err=0.0)
+        settled = entries = 0
+        for name, p in module.named_parameters():
+            g = g_ref[name]
+            e["grad_share_of_tol"] = max(e["grad_share_of_tol"],
+                                         share_of_tol(g_got[name], g, GRAD_ATOL + GRAD_RTOL * g.abs()))
+            tol = torch.full_like(p, POLICY_PARAM_TOL)
+            if part == "belief":
+                firm = g.abs() > SETTLED_GRAD
+                tol = torch.where(firm, SETTLED_PARAM_TOL, 2 * bp_lr + 1e-4)
+                settled += int(firm.sum())
+                entries += p.numel()
+                if firm.any():
+                    e["param_max_abs_err_settled"] = max(e.get("param_max_abs_err_settled", 0.0),
+                                                         share_of_tol(got_params[name][firm], p[firm], 1.0))
+            e["param_share_of_tol"] = max(e["param_share_of_tol"], share_of_tol(got_params[name], p, tol))
+            e["param_max_abs_err"] = max(e["param_max_abs_err"], share_of_tol(got_params[name], p, 1.0))
+        if part == "belief":
+            e["settled_share"] = settled / entries
+        errs[part] = e
+    fields = dict(optimizer_steps=got_tr.optimizer.count, smt_launches=launches,
+                  losses={k: [ref[k].item(), got[k].item()] for k in ref}, loss_err=loss_err, loss_tol=1e-3,
+                  errors=errs)
+    emit("update_reference", **fields)
+    if not all(math.isfinite(v) and v <= 1e-3 for v in loss_err.values()):
+        raise AssertionError(f"update_reference: CUDA vs CPU losses differ {loss_err}")
+    bad = {k: v for k, v in errs.items()
+           if not (v["grad_share_of_tol"] <= 1 and v["param_share_of_tol"] <= 1)}
+    if bad:
+        raise AssertionError(f"update_reference: CUDA vs CPU gradients or parameters differ {bad}")
+    if launches < 1:
+        raise AssertionError("update_reference: the SMT kernel did not run in the update")
+    return fields
 
 
 def run_main_path(dev):
@@ -690,7 +841,129 @@ def run_main_path(dev):
     short = {k: n for k, n in launches.items() if n < need}
     if short:
         raise AssertionError(f"kernels launched fewer than {need} times on the main path: {short}")
-    return launches
+    return trainer, launches
+
+
+class StreamTimer:
+    """CUDA events on the current stream around each call of a function,
+    summed after a synchronise: the stream time of that part of a run."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def wrap(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        return timed
+
+    def take_ms(self) -> float:
+        """Summed ms of the calls since the last take (synchronises)."""
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs = []
+        return ms
+
+
+def run_update(trainer, dev, smi: str):
+    """UPDATE_ROUNDS rounds of collect + update on savi.yaml's trainer,
+    every kernel's launches counted from zero over the rounds."""
+    import torch
+
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    wrappers = {
+        "smt_encode": smt_cuda.smt_encode,
+        "partial_irfft": irfft_cuda.partial_irfft,
+        "spectrogram": spectrogram_cuda.spectrogram,
+    }
+    cfg = trainer.config
+    smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
+    ppo_cfg = trainer.ppo_cfg
+    t_steps, b = trainer.num_steps, trainer.env.num_envs
+    chunk = smt_cfg.batched_eval_chunk
+    while t_steps % chunk:
+        chunk -= 1
+    num_mb = min(ppo_cfg.num_mini_batch, b)
+    eval_rows = chunk * (b // num_mb)
+    want_launches = ppo_cfg.ppo_epoch * num_mb * (t_steps // chunk)
+
+    towers = ("net.visual_encoder.", "net.goal_encoder.", "net.action_encoder.")
+    start = {n: p.detach().clone() for n, p in trainer.policy.named_parameters()}
+    fwd, bwd, belief = StreamTimer(), StreamTimer(), StreamTimer()
+    rows = []
+
+    def counted(launch):
+        def run(entries, *args):
+            rows.append(entries.shape[0])
+            return launch(entries, *args)
+
+        return fwd.wrap(run)
+
+    trainer.belief_train_step = belief.wrap(trainer.belief_train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    rounds = []
+    try:
+        with smt_cuda.wrapped_passes(counted, bwd.wrap):
+            for _ in range(UPDATE_ROUNDS):
+                t0 = time.perf_counter()
+                _, batch = trainer.collect()
+                torch.cuda.synchronize()
+                rollout_s = time.perf_counter() - t0
+                fwd.take_ms()
+                bwd.take_ms()
+                rows.clear()
+                before = smt_cuda.smt_encode.launches
+                t0 = time.perf_counter()
+                stats = trainer.update(batch)
+                torch.cuda.synchronize()
+                update_s = time.perf_counter() - t0
+                stats = {k: v.item() for k, v in stats.items()}
+                fwd_ms, bwd_ms, belief_ms = fwd.take_ms(), bwd.take_ms(), belief.take_ms()
+                n = smt_cuda.smt_encode.launches - before
+                rounds.append(dict(
+                    rollout_s=rollout_s, update_ms=update_s * 1e3,
+                    split_ms=dict(smt_kernel_forward=fwd_ms, smt_plain_recompute_and_backward=bwd_ms,
+                                  belief_step=belief_ms, rest=update_s * 1e3 - fwd_ms - bwd_ms - belief_ms),
+                    smt_launches=n, eval_rows=eval_rows, smt_launches_at_eval_rows=rows.count(eval_rows),
+                    smt_forward_ms_per_call=fwd_ms / max(n, 1),
+                    train_env_steps_per_s=t_steps * b / (rollout_s + update_s), stats=stats))
+    finally:
+        del trainer.belief_train_step
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    moved = sorted({n.split(".")[1] for n, p in trainer.policy.named_parameters() if not torch.equal(p, start[n])})
+    towers_moved = [n for n, p in trainer.policy.named_parameters()
+                    if n.startswith(towers) and not torch.equal(p, start[n])]
+    emit("update", nvidia_smi=smi, config=SAVI_YAML, rounds=rounds, num_envs=b, num_steps=t_steps, ppo_epoch=ppo_cfg.ppo_epoch,
+         num_mini_batch=num_mb, chunk=chunk, eval_rows=eval_rows, want_smt_launches_per_update=want_launches,
+         launches=launches, peak_mem_gb=peak_gb, moved=moved, towers_moved=towers_moved,
+         optimizer_steps=trainer.optimizer.count)
+    for r in rounds:
+        if not all(math.isfinite(v) for v in r["stats"].values()):
+            raise AssertionError(f"update: non-finite stats {r['stats']}")
+        if r["smt_launches_at_eval_rows"] < max(80, want_launches):
+            raise AssertionError(f"update: {r['smt_launches_at_eval_rows']} SMT launches at {eval_rows} rows, "
+                                 f"want at least {max(80, want_launches)}")
+    if "smt" not in moved or "Dense_0" not in moved:
+        raise AssertionError(f"update: the SMT and heads did not both move ({moved})")
+    if towers_moved:
+        raise AssertionError(f"update: frozen tower parameters moved: {towers_moved[:5]}")
+    if not all(launches.values()):
+        raise AssertionError(f"update: a kernel of the training path never launched: {launches}")
+    return launches, rounds
 
 
 def main() -> int:
@@ -725,7 +998,11 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     check_reference(dev)
-    launches = run_main_path(dev)
+    check_reference(dev, sampling_rate=4000, rir_length=400)
+    check_update_reference(dev)
+    trainer, rollout_launches = run_main_path(dev)
+    launches, rounds = run_update(trainer, dev, smi)
+    del trainer
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -740,9 +1017,14 @@ def main() -> int:
         "partial_irfft": ("avlen_tpu_torch/csrc/partial_irfft.cu", "avlen_tpu/ops/pallas_irfft.py:204"),
         "spectrogram": ("avlen_tpu_torch/csrc/spectrogram.cu", "avlen_tpu/ops/pallas_spectrogram.py:100"),
     }
+    results["smt_encode"]["in_update"] = dict(
+        launches_per_update=[r["smt_launches"] for r in rounds],
+        rows=rounds[0]["eval_rows"],
+        forward_ms_per_call=[r["smt_forward_ms_per_call"] for r in rounds])
     kernels = [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], **results[name], "status": "ok"}
+         "launches": launches[name], "launches_rollout": rollout_launches[name], **results[name],
+         "status": "ok"}
         for name in meta
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

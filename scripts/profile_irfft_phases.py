@@ -9,8 +9,9 @@ at every phase boundary and the CTA's SM id:
 
 - ``cluster4``: the kernel as it is (8192 values and 256 threads a CTA, so
   clusters of 4 CTAs on the audio path);
-- ``cluster8``: 4096 values a CTA (clusters of 8 on the audio path) with
-  three CTAs an SM, the alternative that the measurement weighs against it.
+- ``cluster8``: 4096 values a CTA (16 a thread; clusters of 8 on the audio
+  path) with three CTAs an SM, the alternative that the measurement weighs
+  against it.
 
 For each, at the audio path's shape (N 65536, window 15999 + 16000) with 1
 and 32 rows, it prints one JSON line: the CUDA-event time per launch (timed
@@ -46,9 +47,9 @@ def instrumented(src: str) -> str:
     marks = [  # (text, stamp index, where)
         ("  extern __shared__ float4 smem_raw[];\n", 0, "after"),
         ("  __syncthreads();\n  auto exp_n", 1, "before_auto"),
-        ("      else stage<8>(Q, ns, cols1, lc1, twq, Q, load_z, store);\n", 2, "after"),
+        ("        stage<T, r>(Q, ns, cols1, lc1, twq, Q, load_z, store);\n", 2, "after"),
         ("  cluster_sync();  // every CTA's s complete and visible to the cluster\n", 3, "around"),
-        ("  cluster_sync();  // no CTA reads another's s after this, so s is free\n", 5, "around"),
+        ("    cluster_sync();  // no CTA reads another's s after this, so s is free\n", 5, "around"),
     ]
     for text, i, where in marks:
         if src.count(text) != 1:
@@ -59,9 +60,9 @@ def instrumented(src: str) -> str:
             src = src.replace(text, f"  __syncthreads();\n  STAMP({i});\n  auto exp_n")
         else:
             src = src.replace(text, f"  STAMP({i});\n" + text + f"  STAMP({i + 1});\n")
-    end = src.index("}\n\nint g_smem_attr")
+    end = src.index("}\n\nusing KernelFn")
     src = src[:end] + "  STAMP(7);\n" + src[end:]
-    src = src.replace("namespace {\n\nconstexpr int kThreads", STAMP + "namespace {\n\nconstexpr int kThreads", 1)
+    src = src.replace("namespace {\n\n", STAMP + "namespace {\n\n", 1)
     src += ('\nextern "C" int read_stamps(void* host) '
             '{ return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(g_stamp)); }\n')
     return src.replace('#include "smem_fft.cuh"',
@@ -69,9 +70,9 @@ def instrumented(src: str) -> str:
 
 
 def variants(src: str):
-    c8 = src.replace("constexpr int kElems = 8192;", "constexpr int kElems = 4096;")
-    c8 = c8.replace("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 3)")
-    if c8.count("kElems = 4096") != 1 or c8.count("__launch_bounds__(kThreads, 3)") != 1:
+    c8 = src.replace("constexpr int kVals = 32;", "constexpr int kVals = 16;")
+    c8 = c8.replace("__launch_bounds__(T, 2)", "__launch_bounds__(T, 3)")
+    if c8.count("kVals = 16;") != 1 or c8.count("__launch_bounds__(T, 3)") != 1:
         raise RuntimeError("cluster8 variant: constants not found")
     return {"cluster4": (src, 8192), "cluster8": (c8, 4096)}
 

@@ -24,7 +24,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("smt_encode (ours)", ("gemm_nt", "attn_self", "attn_query", "layernorm")),
+    ("smt_encode (ours)", ("smt_",)),
     ("partial_irfft (ours)", ("irfft_cluster",)),
     ("spectrogram (ours)", ("spectrogram_kernel",)),
     ("convolution (cuDNN)", ("conv", "implicit", "winograd", "fprop", "xmma", "cudnn")),

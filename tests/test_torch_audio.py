@@ -94,7 +94,8 @@ def test_plain_irfft_matches_jax(fft_len, out_start, out_len):
     scale = max(np.abs(ref).max(), 1.0)
     np.testing.assert_allclose(got, ref, atol=5e-6 * scale, rtol=0)
     np.testing.assert_allclose(got, mm, atol=5e-6 * scale, rtol=0)
-    assert supported(fft_len) and not supported(8192) and not supported(3 * 8192)
+    assert supported(fft_len) and supported(2048) and supported(8192)
+    assert not supported(1024) and not supported(3 * 8192) and not supported(1 << 19)
 
 
 def test_plain_spectrogram_matches_jax_and_golden():

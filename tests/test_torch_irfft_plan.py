@@ -1,5 +1,7 @@
 """The launch plan of the port's partial-irfft kernel (``csrc/partial_irfft.cu``),
-on the CPU: ``irfft_plan`` fits an H100 block and cluster, its rows cover the
+on the CPU, for every fft_len the kernel takes (2^11 .. 2^18: one CTA of
+32 .. 128 threads below 2^14, clusters of 1 .. 16 CTAs of 256 from there):
+``irfft_plan`` fits an H100 block and cluster, its rows cover the
 window exactly, and a numpy evaluation of the kernel's four-step
 decomposition with the plan's split (P, Q, C, radix stages, u-window)
 equals ``np.fft.irfft``."""
@@ -7,12 +9,12 @@ equals ``np.fft.irfft``."""
 import numpy as np
 import pytest
 
-from avlen_tpu_torch.ops.irfft_cuda import CTA_ELEMS, irfft_plan
+from avlen_tpu_torch.ops.irfft_cuda import CTA_ELEMS, VALUES, irfft_plan
 
 H100_SMEM = 232448  # bytes of shared memory one H100 block may use (227 KB)
 MAX_CLUSTER = 16  # the non-portable maximum; 8 is portable
 
-LOG_LENS = range(14, 19)  # fft_len 2^14 .. 2^18: clusters of 1 .. 16 CTAs
+LOG_LENS = range(11, 19)  # fft_len 2^11 .. 2^18
 
 
 def _windows(n):
@@ -79,12 +81,17 @@ def test_plan_fits_an_h100_cluster(fft_len, window):
     assert plan.smem_bytes <= H100_SMEM
     assert 1 <= plan.cluster <= MAX_CLUSTER and plan.grid == (32 * plan.cluster, 1, 1)
     assert plan.P * plan.Q == plan.h == fft_len // 2
-    assert plan.cluster * CTA_ELEMS == plan.h  # 64 KB of the row on each CTA
+    # 64 KB of the row on each CTA of a cluster; a shorter row on one CTA
+    assert plan.cluster * min(plan.h, CTA_ELEMS) == plan.h
+    assert plan.cluster * plan.threads * VALUES == plan.h  # 32 values per thread in registers
+    assert plan.threads in ((256,) if fft_len >= 1 << 14 else (32, 64, 128))
     assert plan.cols1 * plan.cluster == plan.P and plan.cols2 * plan.cluster == plan.Q
     assert plan.cols1 >= 16 and plan.cols2 >= 16  # a half-warp spans whole columns
+    assert plan.Q >= 32  # pass 1's swizzle runs over 32 values of a column
     assert np.prod(plan.radices_q) == plan.Q and np.prod(plan.radices_p) == plan.P
-    assert len(plan.radices_p) == 2 and set(plan.radices_q + plan.radices_p) <= {8, 16}
-    assert plan.threads * 32 == CTA_ELEMS  # 32 values per thread in registers
+    # the kernel's instantiations: radices 8 and 16 at 256 threads, 8 and 4 below
+    assert len(plan.radices_p) == 2 and len(plan.radices_q) <= 3
+    assert set(plan.radices_q + plan.radices_p) <= ({8, 16} if plan.threads == 256 else {4, 8})
 
 
 @pytest.mark.parametrize("fft_len,window", CASES)
@@ -114,6 +121,20 @@ def test_four_step_with_the_plan_matches_numpy(fft_len, window):
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
-    for bad in ((1 << 13, 0, 100), (1 << 19, 0, 100), (3 << 14, 0, 100), (1 << 14, -1, 10), (1 << 14, 16380, 10)):
+    for bad in ((1 << 10, 0, 100), (1 << 19, 0, 100), (3 << 14, 0, 100), (3 << 11, 0, 100), (1 << 14, -1, 10),
+                (1 << 14, 16380, 10), (1 << 11, 2000, 100)):
         with pytest.raises(ValueError):
             irfft_plan(*bad)
+
+
+@pytest.mark.parametrize("sr,rir_len,fft_len", [(1000, 128, 2048), (2000, 200, 4096), (4000, 400, 8192),
+                                                (8000, 2000, 16384), (16000, 16000, 65536)])
+def test_every_world_convolution_has_a_plan(sr, rir_len, fft_len):
+    """The worlds the JAX package runs: the 1 kHz / 128-tap entry world, the
+    2 kHz / 200-tap test worlds, the 4 kHz / 400-tap recipe smoke, the 8 kHz
+    tiny world and savi.yaml's 16 kHz / 16,000 taps."""
+    from avlen_tpu_torch.ops.audio import conv_fft_len
+
+    assert conv_fft_len(sr, rir_len) == fft_len
+    plan = irfft_plan(fft_len, rir_len - 1, sr, rows=32)
+    assert plan.h == fft_len // 2 and plan.smem_bytes <= H100_SMEM
