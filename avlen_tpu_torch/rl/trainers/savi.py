@@ -1,23 +1,31 @@
 """SAVi trainer: SMT policy + belief predictor PPO.
 
 PyTorch counterpart of ``SaviTrainer`` in ``avlen_tpu/rl/trainers/savi.py``
-(reference ppo_trainer.py:93-1311, plain SAVi path): ``_setup`` builds the
-batched env, the networks and the optimizers from the config; ``collect``
-runs a rollout in which the memory-150 SMT policy acts step by step, with
-the belief predictor filling the category/location beliefs before each act;
-``update`` runs GAE, the PPO update with batched ring re-evaluation, and the
-belief predictor's online location regression (ppo_trainer.py:959-1032) on
-that rollout. Checkpoints, ``train()`` and ``eval()`` are the next slice of
-the port.
+(reference ppo_trainer.py:93-1311, plain SAVi path) with the two-stage
+recipe of the reference configs: stage 1 ``savi_pretraining.yaml`` (SMT
+pretraining, memory 1), stage 2 ``savi.yaml`` (memory 150, frozen encoders,
+the belief predictor filling category/location beliefs), which starts from
+stage 1's checkpoint. ``_setup`` builds the batched env, the networks and
+the optimizers from the config and merges pretrained weights; ``collect``
+runs a rollout in which the SMT policy acts step by step, with the belief
+predictor filling the beliefs before each act; ``update`` runs GAE, the PPO
+update with batched ring re-evaluation, and the belief predictor's online
+location regression (ppo_trainer.py:959-1032); ``train()`` loops collect +
+update with resume, logging, checkpoints and preemption; ``eval()`` runs
+the exactly-once eval of a checkpoint or a folder of them.
 """
 
 from __future__ import annotations
 
+import collections
 import os
-from typing import Dict, List, Optional, Sequence, Union
+import time
+from typing import Any, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
+from avlen_tpu_torch.core.registry import registry
 from avlen_tpu_torch.models.belief_predictor import (
     BeliefPredictorNet,
     init_belief_state,
@@ -29,15 +37,33 @@ from avlen_tpu_torch.rl.gae import compute_gae
 from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.rl.rollout_smt import SMTCarry, collect_rollout_smt, evaluate_sequence_smt_batched
+from avlen_tpu_torch.rl.trainers.base import (
+    METRIC_BLACKLIST,
+    BaseRLTrainer,
+    eval_episode_accounting,
+    exact_once_deal,
+    refuse_videos,
+)
 from avlen_tpu_torch.sim.builder import construct_batched_env
+from avlen_tpu_torch.utils import preemption
+from avlen_tpu_torch.utils.checkpoint import merge_matching_params, save_checkpoint
+from avlen_tpu_torch.utils.flax_bridge import adam_to_flax, load_adam_flax, load_flax_params, to_flax_params
+from avlen_tpu_torch.utils.logging import logger
+from avlen_tpu_torch.utils.profiling import Timings
+from avlen_tpu_torch.utils.tb import TensorboardWriter
 
 
-class SaviTrainer:
+@registry.register_trainer(name="savi")
+class SaviTrainer(BaseRLTrainer):
     def __init__(self, config, device: Union[str, torch.device] = "cuda"):
-        self.config = config
-        self.device = torch.device(device)
+        super().__init__(config, device)
 
     def _setup(self, num_envs: Optional[int] = None):
+        """Env, networks (pretrained weights merged in), optimizers and the
+        first carry; ``setup_seconds`` is its wall time and
+        ``pretrained_counts`` the (copied, kept fresh) tensor counts of the
+        policy's pretrained merge, (0, 0) without one."""
+        t0 = time.perf_counter()
         cfg = self.config
         dev = self.device
         if cfg.TPU.PRECISION != "float32":
@@ -53,10 +79,11 @@ class SaviTrainer:
                 "SCENE_MEMORY_TRANSFORMER.batched_eval False: the PyTorch port re-evaluates "
                 "the ring batched only (the same outputs as the sequential replay)"
             )
-        for path in pretrained_paths(cfg):
-            if not os.path.exists(path):
+        policy_path, belief_path = pretrained_paths(cfg)
+        for path in (policy_path, belief_path):
+            if path and not os.path.exists(path):
+                # a typo'd path must not silently start a staged recipe from scratch
                 raise FileNotFoundError(f"configured pretrained weights not found: {path}")
-            raise NotImplementedError("checkpoint loading is the next slice of the PyTorch port")
 
         self.env = construct_batched_env(
             cfg, num_envs=num_envs, with_depth=True, with_rgb=True,
@@ -84,6 +111,17 @@ class SaviTrainer:
             generator=gen,
         ).to(dev).eval()
         self.feature_size = self.policy.net.feature_size
+        self.pretrained_counts = (0, 0)
+        if policy_path:
+            # cross-stage weight transfer (DDPPO.pretrained_weights, or the SMT
+            # pretrained_path: ddppo_trainer.py:244-280 / ppo_trainer.py:301-513);
+            # stage nets differ in heads, so only matching leaves are merged
+            copied, skipped = self._merge_pretrained(self.policy, policy_path)
+            self.pretrained_counts = (len(copied), len(skipped))
+            logger.info(
+                f"loaded pretrained weights from {policy_path}: "
+                f"{len(copied)} tensors copied, {len(skipped)} kept fresh"
+            )
         self.use_belief_predictor = cfg.RL.PPO.use_belief_predictor
         self.belief_net = None
         if self.use_belief_predictor:
@@ -93,6 +131,10 @@ class SaviTrainer:
                 has_distractor_sound=self.env.config.has_distractor,
                 generator=gen,
             ).to(dev).eval()
+            if belief_path:
+                # offline-pretrained belief predictor (ppo_trainer.py:150-170)
+                bcopied, _ = self._merge_pretrained(self.belief_net, belief_path)
+                logger.info(f"loaded belief predictor from {belief_path} ({len(bcopied)} tensors)")
         self.optimizer = make_optimizer(self.policy.parameters(), self.ppo_cfg)
         self.belief_optimizer = None
         if self.belief_net is not None and bp_cfg.online_training:
@@ -102,12 +144,23 @@ class SaviTrainer:
         # the minibatch permutations (the JAX trainer's PRNGKey(SEED + 1))
         self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
         self.carry = self.reset()
+        self._setup_done = True
+        self.setup_seconds = time.perf_counter() - t0
 
-    def reset(self) -> SMTCarry:
-        """A fresh carry: every env slot at the start of its first episode,
-        empty memories and beliefs."""
+    def _merge_pretrained(self, module: torch.nn.Module, path: str):
+        """Merge the checkpoint's ``state_dict`` into ``module`` where paths
+        and shapes match; returns (copied, skipped) paths."""
+        ckpt = self.load_checkpoint(path)
+        merged, copied, skipped = merge_matching_params(to_flax_params(module), ckpt["state_dict"])
+        load_flax_params(module, merged)
+        return copied, skipped
+
+    def reset(self, order=None, consts: Optional[Dict[str, torch.Tensor]] = None) -> SMTCarry:
+        """A fresh carry: every env slot at the start of its first episode
+        (of ``order``'s streams and ``consts``' tables, when given), empty
+        memories and beliefs."""
         b, dev = self.env.num_envs, self.device
-        state, obs = self.env.reset()
+        state, obs = self.env.reset(order=order, consts=consts)
         if "category_belief" not in obs:
             obs["category_belief"] = torch.zeros((b, 21), dtype=torch.float32, device=dev)
             obs["location_belief"] = torch.zeros((b, 2), dtype=torch.float32, device=dev)
@@ -121,13 +174,18 @@ class SaviTrainer:
         )
 
     def collect(self, carry: Optional[SMTCarry] = None, deterministic: bool = False,
-                n: Optional[int] = None):
+                n: Optional[int] = None, consts: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
         """One rollout of ``n`` (default RL.PPO.num_steps) env steps from
-        ``carry`` (default: the trainer's own, which is then advanced).
-        Returns (carry, RolloutBatch)."""
+        ``carry`` (default: the trainer's own, which is then advanced), the
+        env's episode tables replaced by ``consts`` and actions sampled from
+        ``generator`` when given. Returns (carry, RolloutBatch)."""
         policy, env, belief_net = self.policy, self.env, self.belief_net
         bp_cfg = self.config.RL.PPO.BELIEF_PREDICTOR
-        gen = self.sample_generator
+        gen = self.sample_generator if generator is None else generator
+
+        def env_step(state, actions):
+            return env.step(state, actions, consts=consts)
 
         def act(obs, pa, mf, mv):
             return policy.act(obs, pa, mf, mv, gen, deterministic)
@@ -146,7 +204,7 @@ class SaviTrainer:
 
         own = carry is None
         carry, batch = collect_rollout_smt(
-            env.step, act, val, belief_fn, self.carry if own else carry,
+            env_step, act, val, belief_fn, self.carry if own else carry,
             self.num_steps if n is None else n,
         )
         if own:
@@ -213,17 +271,181 @@ class SaviTrainer:
         )
 
 
-def pretrained_paths(cfg) -> List[str]:
-    """The pretrained weights ``_setup`` loads, chosen as the JAX trainer
-    chooses them: ``DDPPO.pretrained_weights`` when DDPPO.pretrained is on,
-    else the SMT ``pretrained_path`` under use_pretrained; and the belief
-    predictor's ``pretrained_path`` only under use_belief_predictor."""
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self) -> None:
+        """NUM_UPDATES rounds of collect + update (ppo_trainer.py:1088-1240):
+        resume first (RESUME_CHECKPOINT: the interrupted state, else the
+        newest checkpoint; the loop then starts again at update 0, as in the
+        JAX trainer), the reward/metric window over finished episodes,
+        ``Policy/*`` and ``Metrics/*`` scalars every LOG_INTERVAL updates, a
+        checkpoint every CHECKPOINT_INTERVAL updates and at the last, and the
+        interrupted-state save + requeue on a preemption signal. Timings:
+        ``superstep_time`` (collect + update, of which ``collect_time`` and
+        ``update_time``, each ending in a device synchronise),
+        ``host_time`` and ``checkpoint_time``; ``train_seconds`` is the loop's
+        wall time."""
+        self.ensure_setup()
+        cfg = self.config
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
+        window = collections.deque(maxlen=cfg.RL.PPO.reward_window_size)
+        reward_acc = np.zeros((self.env.num_envs,), np.float64)
+        t_start = time.time()
+        ckpt_count = 0
+
+        preemption.register_signal_handlers()
+        self.timings = timings = Timings()
+
+        resume = self.try_to_resume()
+        if resume is not None:
+            self.restore(resume)
+            ckpt_count = int(resume.get("_resume_index", 0))
+
+        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
+            for update in range(cfg.NUM_UPDATES):
+                if preemption.should_exit():
+                    # interrupted-state save + requeue (ddp_utils.py:70-122,
+                    # trainer hook ddppo_trainer.py:846-870)
+                    preemption.save_interrupted_state(self._checkpoint_payload())
+                    preemption.requeue_job()
+                    break
+                with timings.time("superstep_time"):
+                    with timings.time("collect_time"):
+                        _, batch = self.collect()
+                        self._sync()
+                    with timings.time("update_time"):
+                        stats = {k: float(v) for k, v in self.update(batch).items()}
+                self.carry = self._refresh_episode_stream(self.carry)
+
+                with timings.time("host_time"):
+                    rewards = batch.rewards.cpu().numpy()
+                    dones = batch.dones.cpu().numpy()
+                    metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
+                    for t_i in range(rewards.shape[0]):
+                        reward_acc += rewards[t_i]
+                        for b_i in np.nonzero(dones[t_i])[0]:
+                            window.append({"reward": reward_acc[b_i], **{k: metrics[k][t_i, b_i] for k in metrics}})
+                            reward_acc[b_i] = 0.0
+                self.num_steps_done += rewards.size
+                self.num_updates_done += 1
+
+                if update % cfg.LOG_INTERVAL == 0:
+                    fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
+                    logger.info(f"savi update {update} fps {fps:.1f} frames {self.num_steps_done} "
+                                + timings.summary())
+                    if window:
+                        means = {k: float(np.mean([w[k] for w in window])) for k in window[0]}
+                        logger.info("window reward {:.3f} success {:.3f} spl {:.3f}".format(
+                            means.get("reward", 0), means.get("success", 0), means.get("spl", 0)))
+                        for k, v in means.items():
+                            writer.add_scalar(f"Metrics/{k}", v, self.num_steps_done)
+                    for k, v in stats.items():
+                        writer.add_scalar(f"Policy/{k}", v, self.num_steps_done)
+
+                # every CHECKPOINT_INTERVAL updates (ddppo_trainer.py:1191)
+                if (update + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update + 1 == cfg.NUM_UPDATES:
+                    with timings.time("checkpoint_time"):
+                        self.save_checkpoint(f"ckpt.{ckpt_count}.pth")
+                    ckpt_count += 1
+        self.train_seconds = time.time() - t_start
+
+    def restore(self, ckpt: Dict[str, Any]) -> None:
+        """Parameters, both optimizers (Adam moments and steps, the PPO
+        optimizer's step count that the LR decay reads) and
+        ``num_steps_done`` from a checkpoint this trainer wrote."""
+        load_flax_params(self.policy, ckpt["state_dict"])
+        if "belief_predictor" in ckpt and self.belief_net is not None:
+            load_flax_params(self.belief_net, ckpt["belief_predictor"])
+        if "optim_state" in ckpt:
+            load_adam_flax(self.policy, self.optimizer.adam, ckpt["optim_state"]["adam"])
+            self.optimizer.count = int(ckpt["optim_state"]["count"])
+        if "belief_optim_state" in ckpt and self.belief_optimizer is not None:
+            load_adam_flax(self.belief_net, self.belief_optimizer, ckpt["belief_optim_state"]["adam"])
+        self.num_steps_done = int(ckpt.get("extra_state", {}).get("step", 0))
+
+    def _checkpoint_payload(self) -> Dict[str, Any]:
+        """The parameters as Flax trees (``state_dict``, ``belief_predictor``:
+        the JAX package reads them), the optimizers' own states keyed by the
+        same Flax paths, the config and ``extra_state``."""
+        payload = {
+            "state_dict": to_flax_params(self.policy),
+            "optim_state": {"count": self.optimizer.count, "adam": adam_to_flax(self.policy, self.optimizer.adam)},
+            "config": self.config.to_dict(),
+            "extra_state": {"step": self.num_steps_done},
+        }
+        if self.belief_net is not None:
+            payload["belief_predictor"] = to_flax_params(self.belief_net)
+        if self.belief_optimizer is not None:
+            payload["belief_optim_state"] = {"adam": adam_to_flax(self.belief_net, self.belief_optimizer)}
+        return payload
+
+    def save_checkpoint(self, name: str) -> str:
+        return save_checkpoint(self.config.CHECKPOINT_FOLDER, name, self._checkpoint_payload())
+
+    # ------------------------------------------------------------------
+    def _eval_checkpoint(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
+        """The exactly-once eval of one checkpoint (ppo_trainer.py:1806-2046):
+        the env and networks rebuilt under the checkpoint's config, its
+        parameters loaded, every slot dealt its share of the episodes
+        (``exact_once_deal``) under the SOUND_TYPE's sound remap
+        (``eval_consts``), sampled actions as in the reference eval
+        (ppo_trainer.py:1960), each episode id counted once until
+        TEST_EPISODE_COUNT; the means go to ``val/*`` with
+        ``episodes_evaluated``. Eval videos are refused (``refuse_videos``)."""
+        refuse_videos(self.config)
+        ckpt = self.load_checkpoint(checkpoint_path)
+        self.reconfigure_from_checkpoint(ckpt)
+        load_flax_params(self.policy, ckpt["state_dict"])
+        if "belief_predictor" in ckpt and self.belief_net is not None:
+            load_flax_params(self.belief_net, ckpt["belief_predictor"])
+
+        num_episodes = int(self.env.eps["scene"].shape[0])
+        count = min(self.config.TEST_EPISODE_COUNT, num_episodes)
+        b = self.env.num_envs
+        consts = self.env.eval_consts(self.config.SOUND_TYPE)
+        carry = self.reset(order=exact_once_deal(num_episodes, b), consts=consts)
+        gen = torch.Generator(device=self.device).manual_seed(self.config.SEED + 11)
+        stats: Dict[str, list] = collections.defaultdict(list)
+        seen: set = set()
+        max_rollouts = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
+        for _ in range(max_rollouts):
+            if len(seen) >= count:
+                break
+            carry, batch = self.collect(carry, deterministic=False, consts=consts, generator=gen)
+            dones = batch.dones.cpu().numpy()
+            ep_ids = batch.metrics["episode"].cpu().numpy()
+            metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
+            for t, bi in zip(*np.nonzero(dones)):
+                eid = int(ep_ids[t, bi])
+                if eid in seen or len(seen) >= count:
+                    continue
+                seen.add(eid)
+                for k in metrics:
+                    stats[k].append(metrics[k][t, bi])
+        self._last_eval_episode_ids = sorted(seen)
+        means = {k: float(np.mean(v)) for k, v in stats.items()}
+        means.update(eval_episode_accounting(seen, count, "savi"))
+        logger.info(f"savi eval ckpt {checkpoint_index}: " + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))
+        for k, v in means.items():
+            writer.add_scalar(f"val/{k}", v, checkpoint_index)
+        return means
+
+
+def pretrained_paths(cfg):
+    """(policy path, belief path) that ``_setup`` loads, "" where none,
+    chosen as the JAX trainer chooses them: ``DDPPO.pretrained_weights``
+    when DDPPO.pretrained is on, else the SMT ``pretrained_path`` under
+    use_pretrained; the belief predictor's ``pretrained_path`` only under
+    use_belief_predictor."""
     smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
-    paths = []
+    policy = ""
     if cfg.RL.DDPPO.pretrained and cfg.RL.DDPPO.pretrained_weights:
-        paths.append(cfg.RL.DDPPO.pretrained_weights)
+        policy = cfg.RL.DDPPO.pretrained_weights
     elif smt_cfg.use_pretrained and smt_cfg.pretrained_path:
-        paths.append(smt_cfg.pretrained_path)
-    if cfg.RL.PPO.use_belief_predictor and cfg.RL.PPO.BELIEF_PREDICTOR.pretrained_path:
-        paths.append(cfg.RL.PPO.BELIEF_PREDICTOR.pretrained_path)
-    return paths
+        policy = smt_cfg.pretrained_path
+    belief = cfg.RL.PPO.BELIEF_PREDICTOR.pretrained_path if cfg.RL.PPO.use_belief_predictor else ""
+    return policy, belief

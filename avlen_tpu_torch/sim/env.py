@@ -131,8 +131,8 @@ class BatchedAudioNavEnv:
         bank.rir.ensure_tables()
 
     # ------------------------------------------------------------------
-    def _episode_fields(self, ep_i: torch.Tensor) -> Dict[str, torch.Tensor]:
-        e = self.eps
+    def _episode_fields(self, ep_i: torch.Tensor, eps: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        e = self.eps if eps is None else eps
         keys = ("scene", "start_node", "start_rot", "goal_node", "sound", "offset", "duration",
                 "category", "view_points", "distractor_node", "distractor_sound")
         out = {k: e[k][ep_i].long() for k in keys}
@@ -155,15 +155,20 @@ class BatchedAudioNavEnv:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def reset(self, order: Optional[torch.Tensor] = None) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
-        """``order`` overrides the per-slot episode streams, (B, P) ints."""
+    def reset(self, order: Optional[torch.Tensor] = None,
+              consts: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
+        """``order`` overrides the per-slot episode streams, (B, P) ints,
+        e.g. an exactly-once eval deal (base_trainer.py:185-289). ``consts``
+        replaces the episode tables (``eval_consts``), so that the first
+        episode of each slot takes the override too; pass the same tables to
+        ``step`` for the episodes that follow."""
         b = self.num_envs
         dev = self.device
         cursor = torch.zeros((b,), dtype=torch.long, device=dev)
         order = self.eps["order"] if order is None else torch.as_tensor(order, device=dev)
         order = order.long().clone()
         ep_i = order[torch.arange(b, device=dev), cursor]
-        f = self._episode_fields(ep_i)
+        f = self._episode_fields(ep_i, consts)
         zero = torch.zeros((b,), dtype=torch.long, device=dev)
         state = EnvState(
             node=f["start_node"],
@@ -196,7 +201,46 @@ class BatchedAudioNavEnv:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def step(self, state: EnvState, actions: torch.Tensor, query: Optional[QueryInfo] = None):
+    def eval_consts(self, sound_type: str = "") -> Dict[str, torch.Tensor]:
+        """The episode tables with every episode's sound remapped onto the
+        eval sound set: ``heard`` → the train sounds, ``unheard`` → the
+        held-out sounds (the reference's eval-time SOUND_ID switch,
+        soundspaces/tasks/semantic_audionav_task.py:222-224). The tables
+        themselves when no DATASET.HELD_OUT_SOUNDS split is configured.
+
+        Each episode draws its sound by a hash of its packed index (not of
+        its train sound, which would fold several train sounds onto one eval
+        sound), the same integers as the JAX package's ``eval_consts``."""
+        split = getattr(self, "sound_split", None)
+        if not split or sound_type not in ("heard", "unheard"):
+            return self.eps
+        train_ids, held_ids = split
+        target = np.asarray(train_ids if sound_type == "heard" else held_ids, np.int64)
+        eps = dict(self.eps)
+        n = int(eps["sound"].shape[0])
+
+        def draw(salt: int) -> np.ndarray:
+            h = (np.arange(n, dtype=np.uint32) + np.uint32(salt)) * np.uint32(2654435761)
+            h = h ^ (h >> np.uint32(16))
+            return target[(h % np.uint32(target.shape[0])).astype(np.int64)]
+
+        eps["sound"] = torch.as_tensor(draw(0), dtype=eps["sound"].dtype, device=self.device)
+        dist = eps["distractor_sound"]
+        remapped = torch.as_tensor(draw(0x9E37), dtype=dist.dtype, device=self.device)
+        eps["distractor_sound"] = torch.where(dist >= 0, remapped, dist)
+        return eps
+
+    def refresh_ep_order(self, state: EnvState, order) -> EnvState:
+        """Swap in a refreshed per-slot episode stream (EpisodeStreamer),
+        between rollouts: ``ep_order`` is read only at episode boundaries,
+        so the in-flight episode is untouched."""
+        return state._replace(ep_order=torch.as_tensor(np.asarray(order), device=state.ep_order.device).long())
+
+    @torch.no_grad()
+    def step(self, state: EnvState, actions: torch.Tensor, query: Optional[QueryInfo] = None,
+             consts: Optional[Dict[str, torch.Tensor]] = None):
+        """One step of every slot; done slots auto-reset to the next episode
+        of their stream, read from ``consts`` (default: the env's tables)."""
         if query is None:
             b = state.node.shape[0]
             query = QueryInfo(
@@ -204,9 +248,10 @@ class BatchedAudioNavEnv:
                 query_num=torch.zeros((b,), dtype=torch.long, device=self.device),
                 cons_reward=torch.zeros((b,), dtype=torch.float32, device=self.device),
             )
-        return self._step_impl(state, actions.long(), query)
+        return self._step_impl(state, actions.long(), query, consts)
 
-    def _step_impl(self, state: EnvState, actions: torch.Tensor, query: QueryInfo):
+    def _step_impl(self, state: EnvState, actions: torch.Tensor, query: QueryInfo,
+                   consts: Optional[Dict[str, torch.Tensor]] = None):
         cfg = self.config
         tables = self.bank.tables
 
@@ -291,7 +336,7 @@ class BatchedAudioNavEnv:
         cursor = torch.where(done, state.cursor + 1, state.cursor)
         per = state.ep_order.shape[1]
         ep_i = torch.gather(state.ep_order, 1, (cursor % per)[:, None])[:, 0]
-        f = self._episode_fields(ep_i)
+        f = self._episode_fields(ep_i, consts)
 
         def sel(new_ep_val, cont_val):
             return torch.where(done.reshape((-1,) + (1,) * (cont_val.ndim - 1)), new_ep_val, cont_val)

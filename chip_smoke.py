@@ -61,14 +61,35 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    the short worlds' lengths (2,048, 4,096 and 8,192 points, one CTA a row),
    each with ptxas' registers and spills of the instantiation it runs.
 
+8. ``train_loop``: the recipe through ``avlen_tpu_torch.run.main`` in this
+   process, at full widths, under ``build/chip_smoke_train``: stage 1
+   (``savi_pretraining.yaml``, one update) writes ``ckpt.0``; stage 2
+   (``savi.yaml`` from that checkpoint, two updates) reports the tensors
+   its setup copied and kept fresh, its setup seconds, the loop's
+   env-steps/s (``num_steps_done`` over the loop's seconds, the trainer
+   log's fps) and ms per update by the trainer's ``Timings``, the
+   checkpoint's bytes and its save and load ms; then a resume
+   (``RESUME_CHECKPOINT``, one update) must hold, before its first update,
+   exactly the parameters and both Adam states of ``ckpt.1`` (max abs
+   difference 0) and write ``ckpt.2``.
+9. ``eval``: ``--run-type eval`` of the folder's last checkpoint (split
+   ``train``, ``TEST_EPISODE_COUNT`` 32, no videos): 32 episodes, no id
+   twice, with success, SPL and seconds, read back from the run's event
+   files. Every kernel's launches over these two phases are counted from
+   zero; the phases fail unless every kernel ran in each and the SMT
+   kernel ran at the PPO re-evaluation's 120 rows in the updates.
+
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -85,7 +106,10 @@ SMT_BASELINE_COMMIT = "2cb719c70bc55cd4500ba1cb0fe62810bc84c798"
 # the current kernel from git or build/spectrogram_baseline/.
 SPEC_BASELINE_COMMIT = "586889d64898006621b202088dd6d3fa3e2dabf7"
 SAVI_YAML = "configs/semantic_audionav/savi/savi.yaml"
+STAGE1_YAML = "configs/semantic_audionav/savi/savi_pretraining.yaml"
 UPDATE_ROUNDS = 2
+TRAIN_DIR = "build/chip_smoke_train"  # model dirs of the train_loop and eval phases
+EVAL_EPISODES = 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -786,18 +810,23 @@ def check_update_reference(dev, cfg=None, n: int = 12):
     return fields
 
 
-def run_main_path(dev):
-    import torch
-
-    from avlen_tpu_torch.config import get_config
+def _kernel_wrappers():
     from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
-    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 
-    wrappers = {
+    return {
         "smt_encode": smt_cuda.smt_encode,
         "partial_irfft": irfft_cuda.partial_irfft,
         "spectrogram": spectrogram_cuda.spectrogram,
     }
+
+
+def run_main_path(dev):
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+
+    wrappers = _kernel_wrappers()
     cfg = get_config(SAVI_YAML)
     for fn in wrappers.values():
         fn.launches = 0
@@ -879,13 +908,9 @@ def run_update(trainer, dev, smi: str):
     every kernel's launches counted from zero over the rounds."""
     import torch
 
-    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+    from avlen_tpu_torch.ops import smt_cuda
 
-    wrappers = {
-        "smt_encode": smt_cuda.smt_encode,
-        "partial_irfft": irfft_cuda.partial_irfft,
-        "spectrogram": spectrogram_cuda.spectrogram,
-    }
+    wrappers = _kernel_wrappers()
     cfg = trainer.config
     smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
     ppo_cfg = trainer.ppo_cfg
@@ -966,6 +991,177 @@ def run_update(trainer, dev, smi: str):
     return launches, rounds
 
 
+def _max_tree_diff(got, want) -> float:
+    """Max abs difference over two nested dicts of arrays of the same paths."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"paths differ: {sorted(set(got) ^ set(want))[:5]}")
+        return max([_max_tree_diff(got[k], want[k]) for k in want], default=0.0)
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {got.shape} vs {want.shape}")
+    return float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max(initial=0.0))
+
+
+def trainer_state(trainer):
+    """The trainer's parameters and optimizer states, as its checkpoints
+    hold them."""
+    from avlen_tpu_torch.utils.flax_bridge import adam_to_flax, to_flax_params
+
+    return {
+        "state_dict": to_flax_params(trainer.policy),
+        "belief_predictor": to_flax_params(trainer.belief_net),
+        "optim_state": {"count": trainer.optimizer.count, "adam": adam_to_flax(trainer.policy, trainer.optimizer.adam)},
+        "belief_optim_state": {"adam": adam_to_flax(trainer.belief_net, trainer.belief_optimizer)},
+    }
+
+
+def state_differences(trainer, ckpt):
+    """Max abs difference of each part of ``trainer_state`` to ``ckpt``."""
+    live = trainer_state(trainer)
+    return {k: _max_tree_diff(live[k], ckpt[k]) for k in live}
+
+
+def run_train_loop(smi: str, root: str = TRAIN_DIR):
+    """Stage 1 → stage 2 (from stage 1's checkpoint) → resume, through the
+    CLI's ``main`` on the card, every kernel's launches counted over them."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    stage1, stage2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+    stage1_ckpt = os.path.join(stage1, "data", "ckpt.0.pth")
+    rows = collections.Counter()
+
+    def counted(launch):
+        def run_rows(entries, *args):
+            rows[entries.shape[0]] += 1
+            return launch(entries, *args)
+
+        return run_rows
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    with smt_cuda.wrapped_passes(counted, lambda backward: backward):
+        t0 = time.perf_counter()
+        tr = run.main(["--run-type", "train", "--exp-config", STAGE1_YAML, "--model-dir", stage1,
+                       "NUM_UPDATES", "1", "CHECKPOINT_INTERVAL", "1"])
+        stage1_s = time.perf_counter() - t0
+        if not os.path.isfile(stage1_ckpt):
+            raise AssertionError(f"train_loop: stage 1 wrote no {stage1_ckpt}")
+        stage1_fields = dict(seconds=stage1_s, setup_s=tr.setup_seconds, memory_size=tr.memory_size,
+                             pretraining=bool(tr.config.RL.PPO.SCENE_MEMORY_TRANSFORMER.pretraining))
+        del tr
+
+        transfer = ["RL.PPO.SCENE_MEMORY_TRANSFORMER.pretrained_path", stage1_ckpt]
+        t0 = time.perf_counter()
+        tr = run.main(["--run-type", "train", "--exp-config", SAVI_YAML, "--model-dir", stage2, *transfer,
+                       "NUM_UPDATES", "2", "CHECKPOINT_INTERVAL", "1"])
+        stage2_s = time.perf_counter() - t0
+        totals = dict(tr.timings.totals)
+        ckpt1 = os.path.join(stage2, "data", "ckpt.1.pth")
+        t0 = time.perf_counter()
+        saved = load_checkpoint(ckpt1)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        updates = tr.num_updates_done
+        stage2_fields = dict(
+            seconds=stage2_s, setup_s=tr.setup_seconds, tensors_copied=tr.pretrained_counts[0],
+            tensors_kept_fresh=tr.pretrained_counts[1], updates=updates, num_steps_done=tr.num_steps_done,
+            loop_s=tr.train_seconds, loop_env_steps_per_s=tr.num_steps_done / tr.train_seconds,
+            ms_per_update=totals["superstep_time"] * 1e3 / updates,
+            collect_ms_per_update=totals["collect_time"] * 1e3 / updates,
+            update_ms_per_update=totals["update_time"] * 1e3 / updates,
+            checkpoint_bytes=os.path.getsize(ckpt1), checkpoint_save_ms=totals["checkpoint_time"] * 1e3 / updates,
+            checkpoint_load_ms=load_ms, memory_size=tr.memory_size)
+        want_steps = 2 * tr.num_steps * tr.env.num_envs
+        del tr
+
+        # resume: before its first update the trainer must hold ckpt.1 exactly
+        checked = {}
+        collect = SaviTrainer.collect
+
+        def first_collect(self, *args, **kwargs):
+            if not checked:
+                checked.update(state_differences(self, saved))
+                checked["num_steps_done"] = self.num_steps_done
+            return collect(self, *args, **kwargs)
+
+        SaviTrainer.collect = first_collect
+        try:
+            t0 = time.perf_counter()
+            tr = run.main(["--run-type", "train", "--exp-config", SAVI_YAML, "--model-dir", stage2, *transfer,
+                           "NUM_UPDATES", "1", "RESUME_CHECKPOINT", "True"])
+            resume_s = time.perf_counter() - t0
+        finally:
+            SaviTrainer.collect = collect
+        resume_fields = dict(seconds=resume_s, restored_max_abs_diff=checked,
+                             ckpt2_written=os.path.isfile(os.path.join(stage2, "data", "ckpt.2.pth")),
+                             num_steps_done=tr.num_steps_done)
+        del tr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    emit("train_loop", nvidia_smi=smi, stage1=stage1_fields, stage2=stage2_fields, resume=resume_fields,
+         launches=launches, smt_rows=dict(rows))
+    if stage2_fields["tensors_copied"] < 1:
+        raise AssertionError("train_loop: stage 2 copied no tensor of stage 1's checkpoint")
+    if not checked or any(v != 0 for k, v in checked.items() if k != "num_steps_done"):
+        raise AssertionError(f"train_loop: resume did not restore ckpt.1 exactly: {checked}")
+    if checked["num_steps_done"] != want_steps:
+        raise AssertionError(f"train_loop: resume restored {checked['num_steps_done']} steps, want {want_steps}")
+    if not resume_fields["ckpt2_written"]:
+        raise AssertionError("train_loop: the resumed run wrote no ckpt.2")
+    if not all(launches.values()):
+        raise AssertionError(f"train_loop: a kernel never launched: {launches}")
+    if rows[120] < 80 * 4:  # four updates (1 + 2 + 1), 80 encodes of 120 rows each
+        raise AssertionError(f"train_loop: {rows[120]} SMT launches at 120 rows, want at least 320")
+    return launches, stage2
+
+
+def run_eval(smi: str, model_dir: str):
+    """``--run-type eval`` of the last checkpoint in ``model_dir``."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr = run.main(["--run-type", "eval", "--exp-config", SAVI_YAML, "--model-dir", model_dir,
+                   "USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
+                   "TEST_EPISODE_COUNT", str(EVAL_EPISODES)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ids = tr._last_eval_episode_ids
+    scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(model_dir, "tb")).items() if k.startswith("val/")}
+    fields = dict(nvidia_smi=smi, seconds=seconds, setup_s=tr.setup_seconds, num_envs=tr.env.num_envs,
+                  episodes=len(ids), distinct_ids=len(set(ids)), episodes_evaluated=scalars.get("val/episodes_evaluated"),
+                  success=scalars.get("val/success"), spl=scalars.get("val/spl"), launches=launches)
+    del tr
+    torch.cuda.empty_cache()
+    emit("eval", **fields)
+    if fields["episodes"] != EVAL_EPISODES or fields["distinct_ids"] != EVAL_EPISODES:
+        raise AssertionError(f"eval: {fields['episodes']} episodes ({fields['distinct_ids']} ids), want {EVAL_EPISODES}")
+    if fields["episodes_evaluated"] != EVAL_EPISODES:
+        raise AssertionError(f"eval: the event file says {fields['episodes_evaluated']} episodes")
+    if not all(math.isfinite(fields[k]) for k in ("success", "spl")):
+        raise AssertionError(f"eval: success/spl not finite: {fields}")
+    if not all(launches.values()):
+        raise AssertionError(f"eval: a kernel never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1003,6 +1199,9 @@ def main() -> int:
     trainer, rollout_launches = run_main_path(dev)
     launches, rounds = run_update(trainer, dev, smi)
     del trainer
+    torch.cuda.empty_cache()
+    train_launches, model_dir = run_train_loop(smi)
+    eval_launches = run_eval(smi, model_dir)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1023,7 +1222,8 @@ def main() -> int:
         forward_ms_per_call=[r["smt_forward_ms_per_call"] for r in rounds])
     kernels = [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], "launches_rollout": rollout_launches[name], **results[name],
+         "launches": launches[name], "launches_rollout": rollout_launches[name],
+         "launches_train_loop": train_launches[name], "launches_eval": eval_launches[name], **results[name],
          "status": "ok"}
         for name in meta
     ]

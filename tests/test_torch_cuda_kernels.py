@@ -405,3 +405,54 @@ def test_update_on_the_card_matches_the_cpu(dev):
     fields = chip_smoke.check_update_reference(dev, cfg, n=10)
     assert fields["smt_launches"] == 4 * 2 * 2  # epochs x minibatches x chunks of 5 steps
     assert fields["optimizer_steps"] == 8
+
+
+def test_train_checkpoint_and_resume_on_the_card(dev, tmp_path, monkeypatch):
+    """One update of ``train()`` on a tiny savi.yaml world on the card, its
+    checkpoint, and a resume from it: the checkpoint holds exactly the
+    trainer's parameters and both Adam states, the resumed trainer holds
+    exactly the checkpoint's, and the card's parameters loaded on the CPU
+    give the card's act logits within 1e-4."""
+    import chip_smoke
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+    from avlen_tpu_torch.utils import preemption
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+
+    monkeypatch.setattr(preemption, "INTERRUPTED_STATE_DIR", str(tmp_path / "interrupted"))
+    opts = [
+        "TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "4",
+        "TASK_CONFIG.DATASET.SYNTHETIC.NUM_EPISODES", "20",
+        "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", "2000",
+        "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "32",
+        "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", "8000",
+        "TASK_CONFIG.SIMULATOR.AUDIO.CACHE_SPECTROGRAMS", "False",
+        "NUM_PROCESSES", "3", "RL.PPO.num_steps", "6",
+        "RL.PPO.SCENE_MEMORY_TRANSFORMER.memory_size", "8",
+        "RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size", "32",
+        "RL.PPO.SCENE_MEMORY_TRANSFORMER.nhead", "4",
+        "NUM_UPDATES", "1", "CHECKPOINT_INTERVAL", "1",
+    ]
+    savi = "configs/semantic_audionav/savi/savi.yaml"
+    tr = SaviTrainer(get_config(savi, opts=opts, model_dir=str(tmp_path)), device=dev)
+    tr.train()
+    ckpt = load_checkpoint(str(tmp_path / "data" / "ckpt.0.pth"))
+    assert ckpt["optim_state"]["count"] == tr.optimizer.count > 0
+    assert all(v == 0 for v in chip_smoke.state_differences(tr, ckpt).values())
+
+    resumed = SaviTrainer(get_config(savi, opts=opts + ["RESUME_CHECKPOINT", "True"], model_dir=str(tmp_path)),
+                          device=dev)
+    resumed._setup()
+    resumed.restore(resumed.try_to_resume())
+    assert all(v == 0 for v in chip_smoke.state_differences(resumed, ckpt).values())
+    assert resumed.num_steps_done == 6 * 3
+
+    cpu = SaviTrainer(get_config(savi, opts=opts), device="cpu")
+    cpu._setup()
+    cpu.restore(ckpt)
+    c = resumed.carry
+    with torch.no_grad():
+        *_, want = resumed.policy.act(c.obs, c.prev_action, c.memory.features, c.memory.valid, deterministic=True)
+        *_, got = cpu.policy.act({k: v.cpu() for k, v in c.obs.items()}, c.prev_action.cpu(),
+                                 c.memory.features.cpu(), c.memory.valid.cpu(), deterministic=True)
+    np.testing.assert_allclose(got.numpy(), want.cpu().numpy(), atol=1e-4)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing every module of avlen_tpu_torch
 loads no jax, jaxlib, flax or optax module and nothing of the JAX package
-avlen_tpu (whose name avlen_tpu_torch merely starts with)."""
+avlen_tpu (whose name avlen_tpu_torch merely starts with); nor msgpack,
+tensorboardX, tensorboard or imageio, which the card's machine does not
+have (the port writes its checkpoints and event files itself)."""
 
 import os
 import subprocess
@@ -16,7 +18,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "avlen_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "avlen_tpu",
+                           "msgpack", "tensorboardX", "tensorboard", "imageio")
 )
 print(len(names))
 print(" ".join(bad))
