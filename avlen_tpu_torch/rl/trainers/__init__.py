@@ -1,8 +1,10 @@
 """Trainers of the port, registered by name (``registry.get_trainer``):
-only ``"savi"`` so far; any other TRAINER_NAME raises the registry's
-KeyError, which lists the known names."""
+``"savi"`` and ``"ddppo"`` (``ddppo_trainer``: the SAVi trainer for the
+rnn/smt policy types, else the AVLEN interactive trainer); any other TRAINER_NAME raises the
+registry's KeyError, which lists the known names."""
 
 from avlen_tpu_torch.rl.trainers.base import BaseRLTrainer
+from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 
-__all__ = ["BaseRLTrainer", "SaviTrainer"]
+__all__ = ["BaseRLTrainer", "InteractiveDDPPOTrainer", "SaviTrainer"]

@@ -7,7 +7,14 @@ port module whose submodule names follow the Flax tree:
 * ``Dense`` kernel (in, out) → ``Linear.weight`` (out, in);
 * ``DenseGeneral`` kernel (D, H, dh) → (H·dh, D), and (H, dh, D) → (D, H·dh);
 * conv kernel HWIO → OIHW;
-* LayerNorm/GroupNorm ``scale``/``bias`` → ``weight``/``bias``.
+* LayerNorm/GroupNorm ``scale``/``bias`` → ``weight``/``bias``;
+* Embed ``embedding`` → ``Embedding.weight``;
+* a bare parameter (the CLIP tower's ``positional_embedding`` and
+  ``text_projection``) keeps its name and layout.
+
+An attention projection's head count is the attention module's own
+``nhead`` (the CLIP tower's ``heads``) or else that of the nearest enclosing
+module (the SMT's or the dialog encoder's ``nhead``).
 
 ``to_flax_params(module)`` is the inverse: the module's parameters (or any
 tensors keyed by its parameter names, such as Adam's moments) as the Flax
@@ -32,6 +39,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from avlen_tpu_torch.models.clip_text import CLIPAttention
 from avlen_tpu_torch.models.smt import MultiHeadAttention
 from avlen_tpu_torch.sim.scene import ProceduralRIRBank, SceneBank
 
@@ -46,15 +54,15 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
     return out
 
 
-_TORCH_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_TORCH_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_ATTENTION = (MultiHeadAttention, CLIPAttention)
 
 
 def torch_name(path: Tuple[str, ...]) -> str:
-    """The torch parameter name of a Flax leaf path."""
+    """The torch parameter name of a Flax leaf path (a bare parameter keeps
+    its name)."""
     *mods, leaf = path
-    if leaf not in _TORCH_LEAF:
-        raise ValueError(f"unexpected Flax leaf {'/'.join(path)}")
-    return ".".join(mods + [_TORCH_LEAF[leaf]])
+    return ".".join(mods + [_TORCH_LEAF.get(leaf, leaf)])
 
 
 def convert_leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -107,13 +115,15 @@ def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None
 
 
 def _heads(modules: Dict[str, torch.nn.Module], name: str) -> int:
-    """The head count of the nearest enclosing module that holds one."""
-    while name:
-        name = name.rpartition(".")[0]
+    """The head count of attention module ``name``: its own ``nhead`` or
+    that of the nearest enclosing module that holds one."""
+    while True:
         nhead = getattr(modules[name], "nhead", None)
         if nhead is not None:
             return int(nhead)
-    raise ValueError("an attention projection outside any module with nhead")
+        if not name:
+            raise ValueError("an attention projection outside any module with nhead")
+        name = name.rpartition(".")[0]
 
 
 def flax_path(modules: Dict[str, torch.nn.Module], name: str) -> Tuple[str, ...]:
@@ -122,10 +132,13 @@ def flax_path(modules: Dict[str, torch.nn.Module], name: str) -> Tuple[str, ...]
     owner_name, _, leaf = name.rpartition(".")
     owner = modules[owner_name]
     if leaf == "weight":
-        leaf = "kernel" if isinstance(owner, (torch.nn.Linear, torch.nn.Conv2d)) else "scale"
-    elif leaf != "bias":
-        raise ValueError(f"unexpected parameter {name}")
-    return tuple(owner_name.split(".")) + (leaf,)
+        if isinstance(owner, (torch.nn.Linear, torch.nn.Conv2d)):
+            leaf = "kernel"
+        elif isinstance(owner, torch.nn.Embedding):
+            leaf = "embedding"
+        else:
+            leaf = "scale"
+    return (tuple(owner_name.split(".")) if owner_name else ()) + (leaf,)
 
 
 def flax_leaf(modules: Dict[str, torch.nn.Module], name: str, value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
@@ -134,7 +147,7 @@ def flax_leaf(modules: Dict[str, torch.nn.Module], name: str, value: np.ndarray)
     owner_name, _, leaf = name.rpartition(".")
     owner = modules[owner_name]
     parent_name, _, attr = owner_name.rpartition(".")
-    if isinstance(owner, torch.nn.Linear) and isinstance(modules.get(parent_name), MultiHeadAttention):
+    if isinstance(owner, torch.nn.Linear) and isinstance(modules.get(parent_name), _ATTENTION):
         h = _heads(modules, parent_name)
         if leaf == "weight" and attr == "out":  # (D, H·dh) → (H, dh, D)
             value = value.T.reshape(h, -1, value.shape[0])

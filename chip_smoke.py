@@ -79,13 +79,37 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    zero; the phases fail unless every kernel ran in each and the SMT
    kernel ran at the PPO re-evaluation's 120 rows in the updates.
 
-Then the ``kernels`` summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+10. ``belief_pretrain``: stage 0 (``avlen_tpu_torch.pretraining.
+    audiogoal_predictor.main``, 20 steps at batch 64 on its CLI's world:
+    32,768-point convolutions), after one sampled batch's irfft and
+    spectrogram held against their plain versions; ms a step, examples/s,
+    CE/MSE/acc at the first and last step, the checkpoint's bytes, its
+    reload, and one launch of each audio kernel a step at 64 rows.
+11. ``interactive``: the AVLEN trainer at full width on
+    savi_interactive_1st_stage.yaml (6 envs, memory 150, d_model 256, CLIP
+    512 x 12 layers) with the template speaker (no speaker checkpoint
+    ships), π_g from train_loop's last checkpoint and the belief predictor
+    from belief_pretrain's: setup (bank build seconds and bytes apart) and
+    two collects of 150 steps; then savi_interactive_2nd_stage.yaml (full
+    memory, the host speaker per query) for one collect. Env-steps/s,
+    queries, dialog steps, the rl_mask share, CLIP tower calls and every
+    kernel launch by shape: three SMT encodes a step at (6,151,288),
+    (6,151,320) and (6,4,288), one irfft and one spectrogram. π_g must hold
+    its checkpoint exactly.
+12. ``interactive_reference``: the interactive collect on a tiny world,
+    CUDA against CPU with the same weights and sampling draws: the three
+    policies' logits within 1e-3 over at least 8 agreeing steps.
+
+The kernel checks (phase 7) then add ``smt_interactive_shapes``: the SMT
+kernel against its plain version at the three AVLEN shapes, pretraining
+off and on, with both times. Then the ``kernels`` summary line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -528,10 +552,14 @@ def check_irfft(dev, gen, build_log: str):
         raise AssertionError(f"partial_irfft: max abs err {err} > {tol}")
     if not 0 < per_call <= 1 or any("irfft_cluster" not in n for n in names):
         raise AssertionError(f"partial_irfft: {per_call} kernels per call ({names}), want one launch")
-    short = {}
-    # the 1, 2 and 4 kHz worlds (128, 200 and 400 taps): one CTA a row
-    for n, start, length in ((2048, 127, 1000), (4096, 199, 2000), (8192, 399, 4000)):
-        sp = torch.fft.rfft(torch.randn(16, 2, n, generator=gen, device=dev), dim=-1)
+    cases = {}
+    # the AVLEN step's 6 envs (16 kHz, 16,000-tap RIRs), then the 1, 2 and
+    # 4 kHz worlds (128, 200 and 400 taps): one CTA a row
+    for case, b, n, start, length in (("interactive", 6, 65536, 15999, 16000),
+                                      ("fft_len_2048", 16, 2048, 127, 1000),
+                                      ("fft_len_4096", 16, 4096, 199, 2000),
+                                      ("fft_len_8192", 16, 8192, 399, 4000)):
+        sp = torch.fft.rfft(torch.randn(b, 2, n, generator=gen, device=dev), dim=-1)
         got_n = irfft_cuda.partial_irfft(sp, n, start, length)
         want_n = irfft_cuda.partial_irfft_plain(sp, n, start, length)
         torch.cuda.synchronize()
@@ -539,18 +567,21 @@ def check_irfft(dev, gen, build_log: str):
         err_n = (got_n - want_n).abs().max().item()
         ms_n, how_n = time_ms(lambda: irfft_cuda.partial_irfft(sp, n, start, length))
         plain_n, _ = time_ms(lambda: irfft_cuda.partial_irfft_plain(sp, n, start, length))
-        plan_n = irfft_cuda.irfft_plan(n, start, length, 32)
-        bound_n, bound_by_n = bound(32 * 2.5 * n * math.log2(n), sp.numel() * 8 + got_n.numel() * 4)
+        plan_n = irfft_cuda.irfft_plan(n, start, length, 2 * b)
+        bound_n, bound_by_n = bound(2 * b * 2.5 * n * math.log2(n), sp.numel() * 8 + got_n.numel() * 4)
         regs_n, spill_st_n, spill_ld_n = ptxas_report(build_log, f"irfft_clusterILi{plan_n.threads}E")
-        short[n] = dict(max_abs_err=err_n, tol=tol_n, ms=ms_n, plain_ms=plain_n, bound_ms=bound_n,
-                        bound_by=bound_by_n, threads=plan_n.threads, registers=regs_n,
-                        spill_store_bytes=spill_st_n, spill_load_bytes=spill_ld_n)
-        emit("kernel", kernel="partial_irfft", case=f"fft_len_{n}", shape=list(sp.shape), **short[n],
+        cases[case] = dict(max_abs_err=err_n, tol=tol_n, ms=ms_n, plain_ms=plain_n, bound_ms=bound_n,
+                           bound_by=bound_by_n, threads=plan_n.threads, registers=regs_n,
+                           spill_store_bytes=spill_st_n, spill_load_bytes=spill_ld_n)
+        emit("kernel", kernel="partial_irfft", case=case, shape=list(sp.shape), **cases[case],
              cluster=plan_n.cluster, timing=how_n)
         if not math.isfinite(err_n) or err_n > tol_n:
-            raise AssertionError(f"partial_irfft at fft_len {n}: max abs err {err_n} > {tol_n}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, **extra, short_rows=short)
+            raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
+    interactive = cases.pop("interactive")
+    short = {int(case.rsplit("_", 1)[1]): fields for case, fields in cases.items()}
+    return dict(max_abs_err=max(err, interactive["max_abs_err"]), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
+                interactive_rows=interactive, short_rows=short)
 
 
 def spectrogram_flops_bytes(audio, out, cfg):
@@ -566,10 +597,11 @@ def spectrogram_flops_bytes(audio, out, cfg):
 
 
 def check_spectrogram(dev, gen, build_log: str):
-    """The spectrogram against its plain version in four cases: ``main``
+    """The spectrogram against its plain version in five cases: ``main``
     (the rollout's 16 envs), ``bank_rows`` (256 envs, a row block of the
-    spectrogram bank), ``uneven`` (right ear x1e-3, one silent env) and
-    ``short`` (3 envs of 8 kHz). At main and bank_rows also: its time in
+    spectrogram bank), ``uneven`` (right ear x1e-3, one silent env),
+    ``short`` (3 envs of 8 kHz) and ``interactive`` (the AVLEN step's 6
+    envs, with the kernel's and the plain version's times). At main and bank_rows also: its time in
     turns with the radix-2 kernel it replaced (baseline, kernel, kernel,
     baseline), the plain version's time, one ``torch.stft`` of the same
     audio (``stft_call_ms``, the transform alone), kernels per call by
@@ -595,6 +627,7 @@ def check_spectrogram(dev, gen, build_log: str):
         ("bank_rows", 256, 16000, 1.0, None),
         ("uneven", 16, 16000, 1e-3, 5),
         ("short", 3, 8000, 1.0, None),
+        ("interactive", 6, 16000, 1.0, None),
     ):
         cfg = SpectrogramConfig(sampling_rate=sr)
         audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
@@ -645,6 +678,10 @@ def check_spectrogram(dev, gen, build_log: str):
             if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
                 raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
         else:
+            if case == "interactive":
+                fields["ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
+                fields["plain_ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
+                results[case] = fields
             emit("kernel", **fields)
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"spectrogram {case}: max abs err {err} > {tol}")
@@ -659,6 +696,7 @@ def check_spectrogram(dev, gen, build_log: str):
         max_abs_err=max(results["errors"].values()), max_abs_err_by_case=results["errors"],
         bank_rows={k: bank[k] for k in ("ms", "plain_ms", "baseline_ms", "stft_call_ms", "bound_ms",
                                         "bound_by", "bound_bytes_ms", "bound_ops_ms", "share_of_bound")},
+        interactive_rows={k: results["interactive"][k] for k in ("shape", "max_abs_err", "ms", "plain_ms")},
         ptxas=ptxas)
 
 
@@ -1161,6 +1199,438 @@ def run_eval(smi: str, model_dir: str):
         raise AssertionError(f"eval: a kernel never launched: {launches}")
     return launches
 
+INTERACTIVE_STAGE1 = "configs/semantic_audionav/savi/savi_interactive_1st_stage.yaml"
+INTERACTIVE_STAGE2 = "configs/semantic_audionav/savi/savi_interactive_2nd_stage.yaml"
+PRETRAIN_DIR = "build/chip_smoke_pretrain"  # label_predictor.pth of the belief_pretrain phase
+PRETRAIN_STEPS, PRETRAIN_BATCH = 20, 64
+INTERACTIVE_REF_STEPS, INTERACTIVE_REF_MIN_AGREEING = 16, 8
+# the logits are 0.01-gain projections (|logit| ~1e-2 on the tiny world; the
+# H100 read 1.0e-7), the values and SMT states O(1) (SAVi's values: 1.7e-6)
+INTERACTIVE_REF_LOGITS_TOL, INTERACTIVE_REF_STATE_TOL = 1e-5, 1e-4
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Within the block, the inputs' shapes of every kernel launch: Counters
+    keyed by (B, L, F) entries for ``smt_encode``, (leading dims..., fft_len)
+    for ``partial_irfft`` and (B, 2, T) audio for ``spectrogram``. The
+    wrappers' launch counts are untouched."""
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    shapes = {k: collections.Counter() for k in ("smt_encode", "partial_irfft", "spectrogram")}
+    irfft_launch, spec_launch = irfft_cuda._launch, spectrogram_cuda._launch
+
+    def irfft(spec, fft_len, out_start, out_len):
+        shapes["partial_irfft"][tuple(spec.shape[:-1]) + (fft_len,)] += 1
+        return irfft_launch(spec, fft_len, out_start, out_len)
+
+    def spectro(audio, config):
+        shapes["spectrogram"][tuple(audio.shape)] += 1
+        return spec_launch(audio, config)
+
+    def smt(launch):
+        def run(entries, *args):
+            shapes["smt_encode"][tuple(entries.shape)] += 1
+            return launch(entries, *args)
+
+        return run
+
+    irfft_cuda._launch, spectrogram_cuda._launch = irfft, spectro
+    try:
+        with smt_cuda.wrapped_passes(smt, lambda backward: backward):
+            yield shapes
+    finally:
+        irfft_cuda._launch, spectrogram_cuda._launch = irfft_launch, spec_launch
+
+
+def _shape_counts(shapes):
+    return {k: {"x".join(map(str, s)): n for s, n in c.items()} for k, c in shapes.items()}
+
+
+def run_belief_pretrain(dev, smi: str, root: str = PRETRAIN_DIR):
+    """Stage 0 through its CLI's ``main`` in this process: 20 steps at batch
+    64 on the CLI's world (2 scenes, side 8, 16 kHz, 2,000-tap RIRs: 32,768-
+    point convolutions). Before the loop, one batch drawn as the sampler
+    draws it: the irfft and spectrogram kernels against their plain versions
+    on the same tensors (1e-5 x peak, 1e-4 abs), timed beside them (and the
+    irfft beside ``torch.fft.irfft`` + slice) with their bounds, and
+    ``sample_from_indices`` equal to that kernel path. Fails unless each kernel ran once a step at 64
+    rows and 32,768 points, the losses are finite and the checkpoint reloads
+    into the port's belief predictor. Returns (launches, checkpoint path)."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.models.belief_predictor import BeliefPredictorNet
+    from avlen_tpu_torch.ops import irfft_cuda, spectrogram_cuda
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig, _product_spectrum
+    from avlen_tpu_torch.pretraining import audiogoal_predictor as ag
+    from avlen_tpu_torch.sim.synthetic import make_scene_bank
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+    from avlen_tpu_torch.utils.flax_bridge import load_flax_params, to_flax_params
+
+    b = PRETRAIN_BATCH
+    bank, _ = make_scene_bank(np.random.RandomState(0), num_scenes=2, side=8, device=dev)
+    sr = bank.sampling_rate
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def draw(high):
+        return torch.randint(0, high, (b,), generator=gen, device=dev)
+
+    scene = draw(2)
+    n = bank.tables["num_nodes"][scene].long()
+    recv, src, rot, sound = draw(10**6) % n, draw(10**6) % n, draw(4), draw(bank.sounds_padded.shape[0])
+    with torch.no_grad():
+        rir = bank.rir.gather(scene, (4 - rot) % 4, recv, src)
+        prod, taps, fft_len = _product_spectrum(bank.sounds_padded[sound], torch.zeros_like(scene), rir, sr,
+                                                None, None, None)
+        audio = irfft_cuda.partial_irfft(prod, fft_len, taps - 1, sr)
+        audio_plain = irfft_cuda.partial_irfft_plain(prod, fft_len, taps - 1, sr)
+        cfg = SpectrogramConfig(sampling_rate=sr)
+        spec = spectrogram_cuda.spectrogram(audio, cfg)
+        spec_plain = spectrogram_cuda.spectrogram_plain(audio, cfg)
+        sampled, _, _ = ag.sample_from_indices(bank, scene, recv, src, rot, sound)
+    torch.cuda.synchronize()
+    irfft_tol = 1e-5 * max(audio_plain.abs().max().item(), 1.0)
+    errs = dict(irfft=(audio - audio_plain).abs().max().item(), spectrogram=(spec - spec_plain).abs().max().item(),
+                sample_from_indices_vs_kernels=(sampled - spec).abs().max().item())
+    timing = dict(
+        irfft=[time_ms(fn)[0] for fn in (
+            lambda: irfft_cuda.partial_irfft(prod, fft_len, taps - 1, sr),
+            lambda: irfft_cuda.partial_irfft_plain(prod, fft_len, taps - 1, sr),
+            lambda: torch.fft.irfft(prod, n=fft_len, dim=-1)[..., taps - 1 : taps - 1 + sr])],
+        spectrogram=[time_ms(fn)[0] for fn in (lambda: spectrogram_cuda.spectrogram(audio, cfg),
+                                               lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))])
+    rows = prod.shape[0] * prod.shape[1]
+    bounds = dict(irfft=bound(rows * 2.5 * fft_len * math.log2(fft_len), prod.numel() * 8 + audio.numel() * 4),
+                  spectrogram=bound(*spectrogram_flops_bytes(audio, spec, cfg)))
+    check = dict(rows=b, fft_len=fft_len, max_abs_err=errs, tol=dict(irfft=irfft_tol, spectrogram=1e-4),
+                 ms={k: dict(zip(("kernel", "plain", "library"), v)) for k, v in timing.items()},
+                 bound_ms={k: dict(ms=v[0], bound_by=v[1]) for k, v in bounds.items()})
+    del bank
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    with launch_shapes() as shapes:
+        out = ag.main(["--steps", str(PRETRAIN_STEPS), "--batch", str(b), "--output", root, "--device", "cuda"])
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ckpt = load_checkpoint(out["checkpoint"])
+    net = BeliefPredictorNet().to(dev)
+    load_flax_params(net, ckpt["state_dict"])
+    with torch.no_grad():
+        loc, logits = net(spec)
+    steps, loop_s = out["steps"], out["loop_seconds"]
+    hist = out["history"]
+    fields = dict(
+        nvidia_smi=smi, steps=steps, batch=b, kernel_check=check, loop_s=loop_s,
+        first_step_s=out["first_step_seconds"], ms_per_step=loop_s / steps * 1e3,
+        ms_per_step_after_first=(loop_s - out["first_step_seconds"]) / (steps - 1) * 1e3,
+        examples_per_s=steps * b / loop_s, first=hist[0], last=hist[-1],
+        checkpoint_bytes=os.path.getsize(out["checkpoint"]),
+        reload_max_abs_diff=_max_tree_diff(to_flax_params(net), ckpt["state_dict"]),
+        reloaded_outputs_finite=bool(torch.isfinite(loc).all() and torch.isfinite(logits).all()),
+        launches=launches, shapes=_shape_counts(shapes))
+    emit("belief_pretrain", **fields)
+    if errs["irfft"] > irfft_tol or errs["spectrogram"] > 1e-4 or errs["sample_from_indices_vs_kernels"] != 0:
+        raise AssertionError(f"belief_pretrain: the kernels disagree with their plain versions: {errs}")
+    if not all(math.isfinite(v) for h in (hist[0], hist[-1]) for v in h.values()):
+        raise AssertionError(f"belief_pretrain: non-finite losses {hist[0]} {hist[-1]}")
+    want = {"partial_irfft": {(b, 2, fft_len): steps}, "spectrogram": {(b, 2, sr): steps}}
+    for k, w in want.items():
+        if launches[k] != steps or dict(shapes[k]) != w:
+            raise AssertionError(f"belief_pretrain: {k} launched {dict(shapes[k])}, want {w}")
+    if fft_len != 32768 or fields["reload_max_abs_diff"] != 0 or not fields["reloaded_outputs_finite"]:
+        raise AssertionError(f"belief_pretrain: fft_len {fft_len}, reload {fields['reload_max_abs_diff']}, "
+                             f"finite {fields['reloaded_outputs_finite']}")
+    return launches, out["checkpoint"]
+
+
+def check_smt_interactive_shapes(dev, gen):
+    """The SMT kernel against its plain version (1e-4 abs) at the AVLEN
+    step's three encodes, B = 6 with a goal: π_g (6,151,288), π_q
+    (6,151,320: 308-d features with the pose at 272-276), π_l over the
+    3-step dialog memory (6,4,288); each with pretraining off and on, with
+    the kernel's and the plain version's times."""
+    import torch
+
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops import smt_cuda
+
+    tol, d, nhead, b = 1e-4, 256, 8, 6
+    results = []
+    for policy, m, feat, width in (("goal", 150, 276, 288), ("option", 150, 308, 320), ("dialog", 3, 276, 288)):
+        for pre in (False, True):
+            enc = SMTStateEncoder(feat, d, nhead, pose_indices=(272, 276), pretraining=pre,
+                                  generator=torch.Generator().manual_seed(7)).to(dev)
+            x = torch.randn(b, feat, generator=gen, device=dev)
+            mem = torch.randn(b, m, feat, generator=gen, device=dev)
+            mask = (torch.rand(b, m, generator=gen, device=dev) > 0.3).float()
+            goal = torch.randn(b, d, generator=gen, device=dev)
+            with torch.no_grad():
+                entries, valid = enc.entries(x, mem, mask)
+                params = dict(enc.named_parameters())
+                got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
+                want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ms, how = time_ms(lambda: smt_cuda.smt_encode(params, entries, valid, goal, nhead))
+                plain_ms, plain_how = time_ms(lambda: smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead))
+            flops, nbytes = smt_flops_bytes(entries, valid, goal, params, d)
+            bound_ms, bound_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            fields = dict(kernel="smt_encode", case=f"interactive_{policy}" + ("_pretraining" if pre else ""),
+                          shape=list(entries.shape), max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                          rows_tile=smt_cuda.smt_plan(*entries.shape, d, nhead).rows_tile,
+                          timing=dict(ms=how, plain_ms=plain_how))
+            emit("smt_interactive_shapes", **fields)
+            if tuple(entries.shape) != (b, m + 1, width):
+                raise AssertionError(f"smt_interactive_shapes: entries {tuple(entries.shape)}, want {(b, m + 1, width)}")
+            if not math.isfinite(err) or err > tol:
+                raise AssertionError(f"smt_interactive_shapes {fields['case']}: max abs err {err} > {tol}")
+            results.append({k: fields[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms")})
+    return results
+
+
+def _traj_summary(traj, seconds: float):
+    """Rates, query statistics and finiteness of one interactive collect."""
+    import torch
+
+    t_steps, b = traj["actions"].shape
+    queried, rl_mask = traj["queried"], traj["rl_mask"]
+    dones = traj["dones"]
+    episodes = int(dones.sum())
+    finite = {k: bool(torch.isfinite(traj[k].float()).all())
+              for k in ("values_option", "log_probs_option", "logits_vln", "rewards", "bootstrap_value",
+                        "feat_goal", "feat_option", "feat_vln", "feat_vln_dialog", "dialog_clip")}
+    return dict(
+        seconds=seconds, env_steps_per_s=t_steps * b / seconds, steps=t_steps, envs=b,
+        queries=int((queried & (rl_mask == 1)).sum()), dialog_steps=int(queried.sum()),
+        rl_mask_share=float(rl_mask.mean()), episodes=episodes,
+        success=float(traj["metrics"]["success"][dones].mean()) if episodes else None,
+        finite=finite)
+
+
+def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str):
+    """AVLEN at full width: ``InteractiveDDPPOTrainer`` on
+    savi_interactive_1st_stage.yaml (6 envs, memory 150 in SMT pretraining
+    mode, d_model 256, CLIP width 512 with 12 layers, 16 kHz, 16,000-tap
+    RIRs) with the template speaker, the train_loop phase's last SAVi
+    checkpoint as π_g and belief_pretrain's checkpoint as the belief
+    predictor, the oracle instructions banked (BANK_MODE bank: the world's
+    ~89-node scenes are over MAX_BANK_NODES, where auto would call the host
+    speaker): setup and two collects of 150 steps. Then a fresh trainer on
+    savi_interactive_2nd_stage.yaml (full memory history, BANK_MODE auto:
+    the host speaker per query) for one collect. Every kernel's launches are
+    counted from zero over each of the two runs, setup included. Fails
+    unless π_g and the belief predictor hold their checkpoints exactly, the
+    outputs are finite, and per step the SMT kernel ran once at each of
+    (6,151,288), (6,151,320) and (6,4,288) (plus π_q's bootstrap value), and
+    the irfft and spectrogram once. Returns the two runs' launches."""
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+    from avlen_tpu_torch.utils.flax_bridge import to_flax_params
+
+    common = ["SPEAKER.BACKEND", "template", "GOAL_CKPT_PATH", goal_ckpt,
+              "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt]
+    want_goal, want_belief = (load_checkpoint(p)["state_dict"] for p in (goal_ckpt, belief_ckpt))
+    wrappers = _kernel_wrappers()
+    runs, all_launches = {}, {}
+    for stage, config, opts, collects in (("stage1", INTERACTIVE_STAGE1, ["SPEAKER.BANK_MODE", "bank"], 2),
+                                          ("stage2", INTERACTIVE_STAGE2, ["RESUME_CHECKPOINT", "False"], 1)):
+        cfg = get_config(config, opts=common + opts)
+        for fn in wrappers.values():
+            fn.launches = 0
+        with launch_shapes() as shapes:
+            t0 = time.perf_counter()
+            tr = InteractiveDDPPOTrainer(cfg, device=dev)
+            tr._setup()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            rollouts = []
+            for _ in range(collects):
+                clip0 = tr.clip_calls
+                t0 = time.perf_counter()
+                _, traj = tr.collect()
+                torch.cuda.synchronize()
+                rollouts.append(dict(_traj_summary(traj, time.perf_counter() - t0), clip_calls=tr.clip_calls - clip0))
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
+        b, t_steps, m, sr = tr.env.num_envs, tr.num_steps, tr.memory_size, tr.env.bank.sampling_rate
+        source = tr.instr_source
+        run = dict(
+            config=config, num_envs=b, num_steps=t_steps, memory_size=tr.memory_size, d_model=smt_cfg.hidden_size,
+            pretraining=bool(smt_cfg.pretraining), clip_width=cfg.RL.PPO.CLIP_WIDTH,
+            clip_layers=cfg.RL.PPO.CLIP_LAYERS, rir_length=tr.env.bank.rir.length, fft_len=tr.env.bank.rir.fft_len,
+            max_nodes=tr.env.bank.max_nodes, setup_s=tr.setup_seconds, setup_wall_s=setup_s,
+            instructions="bank" if source is None else "host speaker", bank_build_s=tr.bank_seconds,
+            bank_bytes=tr.bank_bytes, host_speaker_calls=getattr(source, "host_calls", None),
+            loaded=sorted(tr.loaded), goal_max_abs_diff=_max_tree_diff(to_flax_params(tr.goal_policy), want_goal),
+            belief_max_abs_diff=_max_tree_diff(to_flax_params(tr.belief_net), want_belief),
+            collects=rollouts, launches=launches, shapes=_shape_counts(shapes))
+        runs[stage] = run
+        all_launches[stage] = launches
+        del tr
+        torch.cuda.empty_cache()
+        steps = t_steps * collects
+        want = {
+            "smt_encode": {(b, length, f): steps + (collects if f == 320 else 0)  # + π_q's bootstrap value
+                           for length, f in ((m + 1, 288), (m + 1, 320), (cfg.NUM_DIALOG_STEPS + 1, 288))},
+            "partial_irfft": {(b, 2, run["fft_len"]): steps + 1},  # + the reset's first observation
+            "spectrogram": {(b, 2, sr): steps + 1},
+        }
+        bad = {k: dict(shapes[k]) for k, w in want.items() if dict(shapes[k]) != w}
+        if bad or any(launches[k] != sum(w.values()) for k, w in want.items()):
+            emit("interactive", nvidia_smi=smi, runs=runs)
+            raise AssertionError(f"interactive {stage}: kernel launches {bad or launches}, want {want}")
+    emit("interactive", nvidia_smi=smi, runs=runs)
+    for stage, run in runs.items():
+        if run["loaded"] != ["belief", "goal"] or run["goal_max_abs_diff"] != 0 or run["belief_max_abs_diff"] != 0:
+            raise AssertionError(f"interactive {stage}: checkpoints not held exactly: {run['loaded']} "
+                                 f"{run['goal_max_abs_diff']} {run['belief_max_abs_diff']}")
+        for r in run["collects"]:
+            if not all(r["finite"].values()):
+                raise AssertionError(f"interactive {stage}: non-finite outputs {r['finite']}")
+    if runs["stage1"]["bank_bytes"] == 0 or runs["stage2"]["instructions"] != "host speaker":
+        raise AssertionError("interactive: stage 1 must bank the instructions and stage 2 call the host speaker")
+    return all_launches
+
+
+def interactive_tiny_opts():
+    """savi_interactive_2nd_stage.yaml on a tiny world (3 envs, memory 8,
+    d_model 32, 4 heads, CLIP width 64 with 2 layers, 8 kHz, 2,000-tap RIRs),
+    the template speaker, π_l acting when queried."""
+    return ["TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "4", "TASK_CONFIG.DATASET.SYNTHETIC.NUM_EPISODES", "20",
+            "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", "2000", "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "32",
+            "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", "8000",
+            "TASK_CONFIG.SIMULATOR.AUDIO.CACHE_SPECTROGRAMS", "False", "NUM_PROCESSES", "3",
+            "RL.PPO.SCENE_MEMORY_TRANSFORMER.memory_size", "8", "RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size", "32",
+            "RL.PPO.SCENE_MEMORY_TRANSFORMER.nhead", "4", "RL.PPO.CLIP_WIDTH", "64", "RL.PPO.CLIP_LAYERS", "2",
+            "SPEAKER.BACKEND", "template", "RESUME_CHECKPOINT", "False", "GOAL_CKPT_PATH", "", "VLN_CKPT_PATH", ""]
+
+
+@contextlib.contextmanager
+def sampling_on_the_generators_device():
+    """Within, the three policies draw their actions on the sampling
+    generator's device (a CPU generator gives a CUDA run the CPU run's
+    draws for the same probabilities) and return them on the logits'
+    device. A hook of ``check_interactive_reference`` only; the policies'
+    own sampler draws on the logits' device."""
+    import torch
+
+    from avlen_tpu_torch.models import dialog_policy, option_policy, smt_policy
+
+    def sample(generator, logits):
+        probs = torch.softmax(logits, dim=-1).to(generator.device)
+        return torch.multinomial(probs, 1, generator=generator)[..., 0].to(logits.device)
+
+    modules = (smt_policy, option_policy, dialog_policy)
+    saved = [m.categorical_sample for m in modules]
+    for m in modules:
+        m.categorical_sample = sample
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.categorical_sample = fn
+
+
+def check_interactive_reference(dev, steps: int = INTERACTIVE_REF_STEPS,
+                                min_agreeing: int = INTERACTIVE_REF_MIN_AGREEING):
+    """The interactive collect on a tiny world, CUDA (kernels) against CPU
+    (plain versions), with the same world and weights (both drawn on the
+    CPU from the config seed) and the same sampling draws (one CPU generator
+    seeded alike for each run): over the prefix of steps where the three
+    policies' sampled actions agree, which must be at least
+    ``min_agreeing``, the per-step logits of π_q, π_g and π_l within
+    ``INTERACTIVE_REF_LOGITS_TOL``, their values and pre-head states (π_q's
+    and π_g's memory entries, π_l's SMT state) within
+    ``INTERACTIVE_REF_STATE_TOL`` × max(1, peak), the instruction tokens and
+    query flags equal. Returns the phase's fields."""
+    import dataclasses
+
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
+
+    cfg = get_config(INTERACTIVE_STAGE2, opts=interactive_tiny_opts())
+    runs = {}
+    launches = 0
+    # policy -> index of its logits and of its pre-head state in act()'s outputs
+    outputs = {"option": (4, 3), "goal": (4, 3), "dialog": (5, 4)}
+    for d in ("cpu", dev):
+        tr = InteractiveDDPPOTrainer(cfg, device=d)
+        tr._setup()
+        rec = collections.defaultdict(list)
+        make_fns = tr.make_fns
+
+        def recording(deterministic=False, generator=None, make_fns=make_fns, rec=rec):
+            fns = make_fns(deterministic, generator)
+
+            def wrap(name, fn):
+                logits_at, state_at = outputs[name]
+
+                def run(*args):
+                    out = fn(*args)
+                    rec[name].append({"action": out[0].cpu(), "logits": out[logits_at].cpu(),
+                                      "value": out[2].cpu(), "state": out[state_at].cpu()})
+                    return out
+
+                return run
+
+            return dataclasses.replace(fns, act_option=wrap("option", fns.act_option),
+                                       act_goal=wrap("goal", fns.act_goal),
+                                       act_dialog=wrap("dialog", fns.act_dialog))
+
+        tr.make_fns = recording
+        before = smt_cuda.smt_encode.launches
+        with sampling_on_the_generators_device():
+            _, traj = tr.collect(n=steps, generator=torch.Generator(device="cpu").manual_seed(7))
+        launches = smt_cuda.smt_encode.launches - before
+        runs[str(d)] = rec, {k: v.cpu() for k, v in traj.items() if torch.is_tensor(v)}, tr.clip_calls
+    (ref, ref_traj, ref_clip), (got, got_traj, got_clip) = runs["cpu"], runs[str(dev)]
+    prefix = 0
+    while prefix < steps and all(torch.equal(ref[k][prefix]["action"], got[k][prefix]["action"]) for k in ref):
+        prefix += 1
+
+    def max_err(key, relative=False):
+        errs = {}
+        for k in outputs:
+            per_step = []
+            for t in range(prefix):
+                want = ref[k][t][key]
+                scale = max(want.abs().max().item(), 1.0) if relative else 1.0
+                per_step.append((got[k][t][key] - want).abs().max().item() / scale)
+            errs[k] = max(per_step, default=None)
+        return errs
+
+    errs = {"logits": max_err("logits"), "values": max_err("value"), "states": max_err("state", relative=True)}
+    tols = {"logits": INTERACTIVE_REF_LOGITS_TOL, "values": INTERACTIVE_REF_STATE_TOL,
+            "states": INTERACTIVE_REF_STATE_TOL}
+    same = {k: bool(torch.equal(ref_traj[k][:prefix], got_traj[k][:prefix]))
+            for k in ("dialog", "queried", "rl_mask", "actions")}
+    fields = dict(steps=steps, agreeing_steps=prefix, min_agreeing=min_agreeing,
+                  logits_max_abs_err=errs["logits"], values_max_abs_err=errs["values"],
+                  states_max_err_of_peak=errs["states"], tol=tols,
+                  equal_over_prefix=same, queries=int((ref_traj["queried"] & (ref_traj["rl_mask"] == 1)).sum()),
+                  clip_calls=[ref_clip, got_clip], smt_launches=launches)
+    emit("interactive_reference", **fields)
+    if prefix < min_agreeing:
+        raise AssertionError(f"interactive_reference: sampled actions diverged after {prefix} steps")
+    if any(e is None or not e <= tols[what] for what, by_policy in errs.items() for e in by_policy.values()):
+        raise AssertionError(f"interactive_reference: CUDA vs CPU differ: {errs} (limits {tols})")
+    if not all(same.values()):
+        raise AssertionError(f"interactive_reference: CUDA vs CPU trajectories differ: {same}")
+    if launches < 3 * steps:
+        raise AssertionError(f"interactive_reference: {launches} SMT launches in {steps} steps")
+    return fields
+
 
 def main() -> int:
     import torch
@@ -1202,6 +1672,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, model_dir = run_train_loop(smi)
     eval_launches = run_eval(smi, model_dir)
+    pretrain_launches, belief_ckpt = run_belief_pretrain(dev, smi)
+    from avlen_tpu_torch.utils.checkpoint import list_checkpoints
+
+    interactive_launches = run_interactive(dev, smi, list_checkpoints(os.path.join(model_dir, "data"))[-1],
+                                           belief_ckpt)
+    check_interactive_reference(dev)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1210,6 +1686,7 @@ def main() -> int:
         "partial_irfft": check_irfft(dev, gen, logs["partial_irfft"]),
         "spectrogram": check_spectrogram(dev, gen, logs["spectrogram"]),
     }
+    results["smt_encode"]["interactive_shapes"] = check_smt_interactive_shapes(dev, gen)
 
     meta = {
         "smt_encode": ("avlen_tpu_torch/csrc/smt_encode.cu", "avlen_tpu/ops/pallas_smt.py:305"),
@@ -1223,7 +1700,10 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": launches[name], "launches_rollout": rollout_launches[name],
-         "launches_train_loop": train_launches[name], "launches_eval": eval_launches[name], **results[name],
+         "launches_train_loop": train_launches[name], "launches_eval": eval_launches[name],
+         "launches_belief_pretrain": pretrain_launches[name],
+         "launches_interactive_stage1": interactive_launches["stage1"][name],
+         "launches_interactive_stage2": interactive_launches["stage2"][name], **results[name],
          "status": "ok"}
         for name in meta
     ]

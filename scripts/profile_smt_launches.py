@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Device time of each launch of one SMT-encode call, in call order, on one CUDA card.
 
-    python3 scripts/profile_smt_launches.py [--src PATH ...] [--batch 16]
+    python3 scripts/profile_smt_launches.py [--src PATH ...] [--batch 16] [--memory 150] [--feat 276]
 
 Builds each ``--src`` (default: ``avlen_tpu_torch/csrc/smt_encode.cu``; any
 source that keeps the C entry ``smt_encode``) into ``build/smt_variants/``
 and runs it at the rollout shape of ``savi.yaml`` (entries (B, 151, 288),
-goal (B, 256), d_model 256, 8 heads; random weights from a seed). For each
+goal (B, 256), d_model 256, 8 heads; random weights from a seed), or at
+(B, memory + 1, feat + 12) (the AVLEN step's: ``--batch 6`` with
+``--memory 3`` for π_l, ``--feat 308`` for π_q). For each
 source it prints one JSON line: the max error against the plain version and
 against an f64 evaluation of it (beside the plain f32 version's own), the
 CUDA-event time per call (timed as ``chip_smoke.py`` times), ptxas'
@@ -38,6 +40,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", action="append", default=None)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--memory", type=int, default=150, help="memory entries before the current step")
+    ap.add_argument("--feat", type=int, default=276, help="step features, the pose last")
     ap.add_argument("--entries-scale", type=float, default=1.0,
                     help="multiply the entries (e.g. 100 for a badly conditioned encode)")
     args = ap.parse_args()
@@ -51,7 +55,7 @@ def main() -> int:
     srcs = args.src or [os.path.join(ROOT, "avlen_tpu_torch", "csrc", "smt_encode.cu")]
     libs = [chip_smoke.SmtLibrary(s, f"v{i}") for i, s in enumerate(srcs)]
 
-    feat, d, nhead, b, m = 276, 256, 8, args.batch, 150
+    feat, d, nhead, b, m = args.feat, 256, 8, args.batch, args.memory
     enc = SMTStateEncoder(feat, d, nhead, pose_indices=(feat - 4, feat),
                           generator=torch.Generator().manual_seed(7)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where a SAVi rollout step's time goes in the PyTorch port, on one CUDA card.
+"""Where a rollout step's time goes in the PyTorch port, on one CUDA card.
 
-    python3 scripts/profile_torch_rollout.py [--steps 20] [--trace PATH]
+    python3 scripts/profile_torch_rollout.py [--steps 20] [--trace PATH] [--interactive]
 
 Builds the port's ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml
-at its full widths, warms up with a short rollout, then runs ``--steps`` env
+at its full widths (with ``--interactive``: the AVLEN trainer on
+savi_interactive_1st_stage.yaml with the template speaker and banked
+instructions), warms up with a short rollout, then runs ``--steps`` env
 steps under ``torch.profiler`` (CPU and CUDA activities) and prints one JSON
 line: host wall ms per step; device busy ms per step (the union of kernel
 intervals) and the device's idle share of the window; host time per labelled
-phase (env step, belief predictor, policy act and its visual / audio / SMT
-parts); and device time per kernel family, with the top kernels by name.
-``--trace`` also writes the Chrome trace there.
+phase (env step, belief predictor, each policy's act and its visual / audio
+/ SMT parts, the CLIP tower); and device time per kernel family, with the
+top kernels by name. ``--trace`` also writes the Chrome trace there.
 """
 
 from __future__ import annotations
@@ -57,12 +59,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--interactive", action="store_true")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
     from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 
     if not torch.cuda.is_available():
@@ -71,15 +75,30 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    trainer = SaviTrainer(get_config("configs/semantic_audionav/savi/savi.yaml"), device=dev)
-    trainer._setup()
-    env, policy, net = trainer.env, trainer.policy, trainer.policy.net
+    if args.interactive:
+        trainer = InteractiveDDPPOTrainer(get_config(
+            "configs/semantic_audionav/savi/savi_interactive_1st_stage.yaml",
+            opts=["SPEAKER.BACKEND", "template", "SPEAKER.BANK_MODE", "bank"]), device=dev)
+        trainer._setup()
+        policies = {"pi_g": (trainer.goal_policy, trainer.goal_policy.net),
+                    "pi_l": (trainer.dialog_policy, trainer.dialog_policy.net.smt_net),
+                    "pi_q": (trainer.option_policy, trainer.option_policy.net)}
+        clip = trainer.dialog_policy.net.clip
+        clip.forward = labelled("clip_tower", clip.forward)
+    else:
+        trainer = SaviTrainer(get_config("configs/semantic_audionav/savi/savi.yaml"), device=dev)
+        trainer._setup()
+        policies = {"policy": (trainer.policy, trainer.policy.net)}
+    env = trainer.env
     env.step = labelled("env.step", env.step)
-    policy.act = labelled("policy.act", policy.act)
-    net.visual_encoder.forward = labelled("act.visual_towers", net.visual_encoder.forward)
-    net.goal_encoder.forward = labelled("act.audio_cnn", net.goal_encoder.forward)
-    net.smt.forward = labelled("act.smt", net.smt.forward)
+    for name, (policy, net) in policies.items():
+        policy.act = labelled(f"{name}.act", policy.act)
+        net.visual_encoder.forward = labelled(f"{name}.act.visual_towers", net.visual_encoder.forward)
+        net.goal_encoder.forward = labelled(f"{name}.act.audio_cnn", net.goal_encoder.forward)
+        net.smt.forward = labelled(f"{name}.act.smt", net.smt.forward)
     trainer.belief_net.forward = labelled("belief_predictor", trainer.belief_net.forward)
+    label_names = {"env.step", "belief_predictor", "clip_tower"} | {
+        f"{name}{part}" for name in policies for part in (".act", ".act.visual_towers", ".act.audio_cnn", ".act.smt")}
 
     trainer.collect(n=5)  # warm-up: cuDNN autotuning, allocator, kernel load
     torch.cuda.synchronize()
@@ -97,12 +116,11 @@ def main() -> int:
     for ev in prof.events():
         dt = getattr(ev, "device_type", None)
         is_dev = dt is not None and "CUDA" in str(dt)
-        if is_dev and ev.time_range.elapsed_us() > 0 and not ev.name.startswith(("Memcpy", "Memset", "act.", "env.", "policy.", "belief")):
+        if is_dev and ev.time_range.elapsed_us() > 0 and not ev.name.startswith("Mem") and ev.name not in label_names:
             us = ev.time_range.elapsed_us()
             kernels[ev.name] = kernels.get(ev.name, 0.0) + us
             intervals.append((ev.time_range.start, ev.time_range.end))
-        elif not is_dev and ev.name in ("env.step", "policy.act", "act.visual_towers", "act.audio_cnn",
-                                         "act.smt", "belief_predictor"):
+        elif not is_dev and ev.name in label_names:
             labels[ev.name] = labels.get(ev.name, 0.0) + ev.time_range.elapsed_us()
     intervals.sort()
     busy, cur_s, cur_e = 0.0, None, None
@@ -121,7 +139,7 @@ def main() -> int:
     n = args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "interactive": args.interactive,
         "steps": n, "num_envs": env.num_envs,
         "host_wall_ms_per_step": wall * 1e3 / n,
         "env_steps_per_s": n * env.num_envs / wall,

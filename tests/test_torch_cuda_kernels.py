@@ -456,3 +456,65 @@ def test_train_checkpoint_and_resume_on_the_card(dev, tmp_path, monkeypatch):
         *_, got = cpu.policy.act({k: v.cpu() for k, v in c.obs.items()}, c.prev_action.cpu(),
                                  c.memory.features.cpu(), c.memory.valid.cpu(), deterministic=True)
     np.testing.assert_allclose(got.numpy(), want.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("m,feat,width,pretraining", [
+    (150, 276, 288, False), (150, 276, 288, True),  # π_g of the AVLEN step, 6 envs
+    (150, 308, 320, False), (150, 308, 320, True),  # π_q: 32-d query state after the pose
+    (3, 276, 288, False), (3, 276, 288, True),  # π_l over the 3-step dialog memory: L = 4
+])
+def test_smt_encode_at_the_interactive_shapes(dev, m, feat, width, pretraining):
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops.smt_cuda import smt_encode, smt_encode_plain, smt_plan
+
+    b, d, nhead = 6, 256, 8
+    enc = SMTStateEncoder(feat, d, nhead, pose_indices=(272, 276), pretraining=pretraining,
+                          generator=torch.Generator().manual_seed(m + feat)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(feat)
+    x = torch.randn(b, feat, generator=g, device=dev)
+    mem = torch.randn(b, m, feat, generator=g, device=dev)
+    mask = (torch.rand(b, m, generator=g, device=dev) > 0.3).float()
+    gl = torch.randn(b, d, generator=g, device=dev)
+    with torch.no_grad():
+        entries, valid = enc.entries(x, mem, mask)
+        p = dict(enc.named_parameters())
+        got = smt_encode(p, entries, valid, gl, nhead)
+        want = smt_encode_plain(p, entries, valid, gl, nhead)
+    assert tuple(entries.shape) == (b, m + 1, width)
+    assert smt_plan(b, m + 1, width, d, nhead).rows_tile == 16
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def _check_audio_kernels(dev, rows, fft_len, out_start):
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig
+    from avlen_tpu_torch.ops.irfft_cuda import partial_irfft, partial_irfft_plain
+    from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram, spectrogram_plain
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    spec = torch.fft.rfft(torch.randn(rows, 2, fft_len, generator=g, device=dev), dim=-1)
+    audio = partial_irfft(spec, fft_len, out_start, 16000)
+    want = partial_irfft_plain(spec, fft_len, out_start, 16000)
+    assert (audio - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1.0)
+    cfg = SpectrogramConfig(sampling_rate=16000)
+    audio = 0.3 * audio / audio.abs().max()
+    assert (spectrogram(audio, cfg) - spectrogram_plain(audio, cfg)).abs().max().item() <= 1e-4
+
+
+def test_audio_kernels_at_the_pretraining_batch(dev):
+    """Stage 0's batch: 64 rows of 32,768-point convolutions (16 kHz,
+    2,000-tap RIRs), then their spectrograms."""
+    _check_audio_kernels(dev, 64, 32768, 1999)
+
+
+def test_audio_kernels_at_the_interactive_step(dev):
+    """The AVLEN step's 6 envs: (6,2,32769) spectra at 65,536 points (16 kHz,
+    16,000-tap RIRs), then their (6,2,16000) spectrograms."""
+    _check_audio_kernels(dev, 6, 65536, 15999)
+
+
+def test_interactive_collect_on_the_card_matches_the_cpu(dev):
+    """chip_smoke's interactive_reference: the tiny-world collect, CUDA vs CPU."""
+    import chip_smoke
+
+    fields = chip_smoke.check_interactive_reference(dev)
+    assert fields["agreeing_steps"] >= chip_smoke.INTERACTIVE_REF_MIN_AGREEING

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing every module of avlen_tpu_torch
+(the subpackages pretraining/, dialog/ and dialog/speaker/ among them)
 loads no jax, jaxlib, flax or optax module and nothing of the JAX package
 avlen_tpu (whose name avlen_tpu_torch merely starts with); nor msgpack,
 tensorboardX, tensorboard or imageio, which the card's machine does not
-have (the port writes its checkpoints and event files itself)."""
+have (the port writes its checkpoints and event files itself), nor
+``regex`` (the CLIP tokenizer's split runs on the standard ``re``)."""
 
 import os
 import subprocess
@@ -19,10 +21,11 @@ for name in names:
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "avlen_tpu",
-                           "msgpack", "tensorboardX", "tensorboard", "imageio")
+                           "msgpack", "tensorboardX", "tensorboard", "imageio", "regex")
 )
 print(len(names))
 print(" ".join(bad))
+print(" ".join(names))
 """
 
 
@@ -32,4 +35,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=300, check=True).stdout.splitlines()
     assert int(out[0]) >= 25  # every module of the package was imported
-    assert out[1:] in ([], [""]), f"the port imported {out[1]}"
+    assert out[1] == "", f"the port imported {out[1]}"
+    names = set(out[2].split())
+    for sub in ("pretraining.audiogoal_predictor", "dialog.instruction_bank", "dialog.instruction_source",
+                "dialog.speaker.speaker", "dialog.speaker.templates", "dialog.speaker.vocab",
+                "models.clip_bpe", "models.clip_text", "models.dialog_policy", "models.option_policy",
+                "rl.rollout_interactive", "rl.trainers.interactive"):
+        assert f"avlen_tpu_torch.{sub}" in names, sub

@@ -157,7 +157,7 @@ def test_find_best_ckpt_idx_agrees_with_jax(runs, tmp_path, tensorboard_without_
 
 
 def test_unported_trainer_name_raises_the_registry_keyerror(tmp_path):
-    with pytest.raises(KeyError, match=r"No trainer registered under 'AVNavTrainer'. Known: \['savi'\]"):
+    with pytest.raises(KeyError, match=r"No trainer registered under 'AVNavTrainer'. Known: \['ddppo', 'savi'\]"):
         _main(tmp_path, "TRAINER_NAME", "AVNavTrainer")
 
 
