@@ -3,7 +3,9 @@
 
 PyTorch counterpart of ``avlen_tpu/rl/rollout_interactive.py``
 (``collect_rollout_interactive``; reference ``_collect_rollout_step``,
-ss_baselines/savi/ppo/ppo_trainer.py:323-897). The JAX ``lax.scan``
+ss_baselines/savi/ppo/ppo_trainer.py:323-897; and
+``collect_rollout_dialog_pretrain``, π_l pretraining's oracle-driven
+rollout). The JAX ``lax.scan``
 becomes a Python loop over env steps; oracle actions come from the graph
 tables, oracle instructions from the token bank (a gather) or the host
 speaker (a callable), the query bookkeeping is a ``QueryTrack`` of integer
@@ -388,4 +390,114 @@ def collect_rollout_interactive(
     pa = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
     qs, lqi = query_encodings(t, pe_table, cfg.pe_max)
     traj["bootstrap_value"] = fns.value_option(obs_b, pa, mem_o.features, mem_o.valid, qs, lqi)
+    return c, traj
+
+
+@torch.no_grad()
+def collect_rollout_dialog_pretrain(
+    act_dialog: Callable,  # (obs, pa, mf, mv, smf, smv, dialog, step[, dclip]) -> (a, lp, v, x, x_att, logits)
+    env_step_noquery: Callable,  # (env_state, actions) -> (env_state, StepOutput)
+    oracle_action: Callable,  # (env_state) -> (B,)
+    belief_fn: Optional[Callable],
+    carry: InteractiveCarry,
+    instr_bank,  # (S, N, 4, N, 77) bank OR callable (env_state, window_start) -> (B, 77)
+    num_dialog_steps: int,
+    num_steps: int,
+    sub_instr_bank: Optional[torch.Tensor] = None,  # (E, 77) dataset instructions, zero rows absent
+    clip_embed: Optional[Callable] = None,
+):
+    """π_l pretraining rollout (DIALOG_TRAINING, ddppo_trainer.py:181-298,
+    881-891 + ppo_trainer.py:354-369): the oracle's actions drive the agent
+    through the env's no-query step. Each window of ``num_dialog_steps``
+    takes its instruction where it starts (a new episode, or the last
+    window closed): the episode's dataset ``sub_instr`` row where non-zero,
+    else the oracle bank or host source. ``masks_vln`` closes each window,
+    so both π_l memories reset. The frozen CLIP embedding of each step's
+    instruction is stored; the tower runs on the steps where some window
+    starts and the embedding is carried through the window (JAX embeds every
+    step: the same values). Returns (carry, traj) with ``initial_memories``."""
+    init_memories = (carry.mem_goal, carry.mem_option, carry.mem_vln, carry.mem_vln_dialog)
+    c = carry
+    steps = []
+    for _ in range(num_steps):
+        new_ep = c.masks == 0
+        t = c.track
+        b = c.masks.shape[0]
+        dev = c.masks.device
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        window_start = new_ep | (t.dialog_step == 0)
+        vln_reset = new_ep | (c.masks_vln == 0)
+        mem_vln = reset_where(c.mem_vln, vln_reset)
+        mem_vln_dialog = reset_where(c.mem_vln_dialog, vln_reset)
+        prev_action = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
+
+        obs = dict(c.obs)
+        belief_state = c.belief
+        if belief_fn is not None:
+            belief_state, cat_b, loc_b = belief_fn(belief_state, obs, new_ep)
+            obs["category_belief"] = cat_b
+            obs["location_belief"] = loc_b
+
+        env_state = c.env_state
+        if callable(instr_bank):
+            tokens = instr_bank(env_state, window_start)
+        else:
+            tokens = instr_bank[env_state.scene, env_state.node, env_state.rot, env_state.goal_node]
+        if sub_instr_bank is not None:
+            ds_tokens = sub_instr_bank[env_state.ep_i]
+            tokens = torch.where((ds_tokens != 0).any(dim=-1)[:, None], ds_tokens, tokens)
+        current_dialog = torch.where(window_start[:, None], tokens, t.current_dialog)
+        agent_step = torch.where(new_ep, zero, t.dialog_step)
+
+        current_clip = None
+        if clip_embed is not None:
+            current_clip = t.current_clip
+            if bool(window_start.any()):
+                fresh = clip_embed(current_dialog).to(t.current_clip.dtype)
+                current_clip = torch.where(window_start[:, None], fresh, t.current_clip)
+        dialog_extra = () if current_clip is None else (current_clip,)
+        _, _, _, x_vln, x_att_dialog, logits = act_dialog(
+            obs, prev_action, mem_vln.features, mem_vln.valid, mem_vln_dialog.features, mem_vln_dialog.valid,
+            current_dialog, agent_step, *dialog_extra)
+        o_action = oracle_action(env_state)
+        env_state2, out = env_step_noquery(env_state, o_action)
+
+        step2 = agent_step + 1
+        closes = (step2 >= num_dialog_steps) | out.done
+        track_next = t._replace(
+            dialog_step=torch.where(closes, zero, step2),
+            total_step=torch.where(out.done, zero, t.total_step + 1),
+            current_dialog=torch.where(closes[:, None], 0, current_dialog),
+            current_clip=t.current_clip if current_clip is None else torch.where(closes[:, None], 0.0, current_clip),
+        )
+        steps.append(dict(
+            obs={**obs, "__prev_action": prev_action},
+            feat_vln=x_vln,
+            feat_vln_dialog=x_att_dialog.detach(),
+            dialog=current_dialog,
+            dialog_clip=(current_clip if current_clip is not None
+                         else torch.zeros((b, 0), dtype=torch.float32, device=dev)),
+            agent_step=agent_step,
+            o_action=o_action,
+            o_mask=torch.ones_like(o_action, dtype=torch.float32),
+            queried=torch.ones_like(out.done),
+            masks_vln=torch.where(vln_reset, torch.zeros_like(c.masks_vln), c.masks_vln),
+            logits_vln=logits,
+            dones=out.done,
+            metrics=dict(out.metrics),
+        ))
+        c = c._replace(
+            env_state=env_state2,
+            obs=out.obs,
+            prev_action=o_action,
+            masks=1.0 - out.done.float(),
+            masks_vln=(~closes).float(),
+            mem_vln=insert(mem_vln, x_vln),
+            mem_vln_dialog=insert(mem_vln_dialog, x_att_dialog),
+            belief=belief_state,
+            track=track_next,
+        )
+
+    traj = _stack(steps)
+    traj["initial_memories"] = init_memories
     return c, traj

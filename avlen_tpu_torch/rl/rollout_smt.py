@@ -165,6 +165,14 @@ def _first_leaf(tree) -> torch.Tensor:
     return tree
 
 
+def ring_eval_chunk(chunk: int, t_len: int) -> int:
+    """The steps ``batched_ring_eval`` takes a batch: the largest divisor
+    of ``t_len`` not above ``chunk``."""
+    while t_len % chunk:
+        chunk -= 1
+    return chunk
+
+
 def batched_ring_eval(
     eval_fn: Callable,  # (flat inputs, [(mem_feats, mem_valid), ...]) -> tuple of (C·B, ...)
     inputs,  # tensors (T, B, ...) in nested dicts/tuples, passed flattened to eval_fn
@@ -178,8 +186,7 @@ def batched_ring_eval(
     memories are supported (the AVLEN interactive policies carry two).
     Returns eval_fn's outputs (a tuple) reshaped to (T, B, ...)."""
     t_len, b = _first_leaf(inputs).shape[:2]
-    while t_len % chunk:
-        chunk -= 1
+    chunk = ring_eval_chunk(chunk, t_len)
 
     plans = []  # (pool (T+M+1, B, F) time-major, content_idx (T,B,M), valid (T,B,M))
     for mem0, feats, masks in memories:

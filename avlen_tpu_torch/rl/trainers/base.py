@@ -111,6 +111,11 @@ class BaseRLTrainer:
         order = streamer.refresh(state.cursor.cpu().numpy())
         return carry._replace(env_state=self.env.refresh_ep_order(state, order))
 
+    def _sync(self) -> None:
+        """Wait for the card (the trainers' Timings end their parts so)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def ensure_setup(self) -> None:
         """Lazy build: eval defers env/model construction until the
         checkpoint's config is known."""

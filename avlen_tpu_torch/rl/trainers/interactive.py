@@ -1,4 +1,4 @@
-"""AVLEN interactive trainer (registered "ddppo"): setup and the acting path.
+"""AVLEN interactive trainer (registered "ddppo").
 
 PyTorch counterpart of ``InteractiveDDPPOTrainer`` in
 ``avlen_tpu/rl/trainers/interactive.py`` (reference DDPPOTrainer,
@@ -8,25 +8,34 @@ ss_baselines/savi/ddppo/algo/ddppo_trainer.py:62-1200):
   DIALOG_TRAINING it returns the port's ``SaviTrainer``
   (ddppo_trainer.py:92-180), so ``run.py`` with TRAINER_NAME ddppo trains
   the SAVi configs; otherwise an ``InteractiveDDPPOTrainer``;
-* ``InteractiveDDPPOTrainer`` (``policy_type: interactive``) builds full AVLEN: π_g (``SMTPolicy``, from
+* ``InteractiveDDPPOTrainer`` builds full AVLEN: π_g (``SMTPolicy``, from
   GOAL_CKPT_PATH), π_l (``DialogPolicy`` with the CLIP text tower, from
   VLN_CKPT_PATH), π_q (``OptionPolicy``), the belief predictor (from its
-  ``pretrained_path``), the oracle-instruction bank or host speaker, and
-  ``collect``, the interactive rollout (``rl/rollout_interactive.py``).
+  ``pretrained_path``) and the oracle-instruction bank or host speaker.
+  ``policy_type: interactive`` trains π_q: ``collect`` (the interactive
+  rollout, ``rl/rollout_interactive.py``), then ``update`` (GAE and
+  ``ppo_update_interactive``, and with REPLAY_STORE π_l's replay CE,
+  ``rl/ppo_interactive.py``), looped by ``train`` with resume, checkpoints
+  of all three policies and both optimizers, and preemption; eval runs the
+  configured query strategy over the eval split exactly once.
+  ``policy_type: dialog`` (or DIALOG_TRAINING) pretrains π_l:
+  ``collect_dialog`` (oracle-driven windows) and ``update_dialog`` (the
+  class-weighted CE over every step), checkpoints under ``vln/``, and an
+  eval of π_l's accuracy and CE against the oracle.
 
-Its training (the π_q PPO and π_l replay-CE updates of
-``rl/ppo_interactive.py``, ``train``, eval and dialog pretraining) is
-ROADMAP item 5b: ``train``, ``eval`` and ``update`` raise. The JAX
-package's device mesh belongs to DD-PPO (item 8) and to the TPU.
+The JAX package's device mesh belongs to DD-PPO (ROADMAP item 8) and to the
+TPU; its chunked host-prefetch collect to item 9.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from avlen_tpu_torch.core.registry import registry
@@ -36,25 +45,34 @@ from avlen_tpu_torch.models.dialog_policy import AudioNavDialogNet, DialogPolicy
 from avlen_tpu_torch.models.memory import init_memory
 from avlen_tpu_torch.models.option_policy import AudioNavOptionNet, OptionPolicy
 from avlen_tpu_torch.models.smt_policy import AudioNavSMTNet, SMTPolicy
+from avlen_tpu_torch.rl.gae import compute_gae
 from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from
+from avlen_tpu_torch.rl.ppo_interactive import dialog_supervised_update, ppo_update_interactive
 from avlen_tpu_torch.rl.rollout_interactive import (
     InteractiveCarry,
     InteractiveConfig,
     InteractiveFns,
+    collect_rollout_dialog_pretrain,
     collect_rollout_interactive,
     init_query_track,
     sinusoidal_pe,
 )
-from avlen_tpu_torch.rl.trainers.base import BaseRLTrainer
+from avlen_tpu_torch.rl.trainers.base import (
+    METRIC_BLACKLIST,
+    BaseRLTrainer,
+    eval_episode_accounting,
+    exact_once_deal,
+    refuse_videos,
+)
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 from avlen_tpu_torch.sim.builder import construct_batched_env
-from avlen_tpu_torch.utils.flax_bridge import load_flax_params
+from avlen_tpu_torch.utils import preemption
+from avlen_tpu_torch.utils.checkpoint import save_checkpoint
+from avlen_tpu_torch.utils.flax_bridge import (adam_to_flax, flax_path, load_adam_flax, load_flax_params,
+                                                to_flax_params)
 from avlen_tpu_torch.utils.logging import logger
-
-TRAINING_LATER = (
-    "AVLEN interactive training is not ported yet (ROADMAP item 5b: rl/ppo_interactive.py, "
-    "the interactive train(), eval and dialog pretraining); this trainer sets up and collects"
-)
+from avlen_tpu_torch.utils.profiling import Timings
+from avlen_tpu_torch.utils.tb import TensorboardWriter
 
 
 @registry.register_trainer(name="ddppo")
@@ -79,11 +97,10 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         if cfg.TPU.PRECISION != "float32":
             raise NotImplementedError(
                 f"TPU.PRECISION {cfg.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far")
-        if cfg.RL.PPO.policy_type == "dialog" or cfg.DIALOG_TRAINING:
-            raise NotImplementedError(f"dialog pretraining: {TRAINING_LATER}")
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         self.policy_type = cfg.RL.PPO.policy_type
+        self.dialog_mode = is_dialog_mode(cfg)
         smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
         bp_cfg = cfg.RL.PPO.BELIEF_PREDICTOR
 
@@ -179,16 +196,19 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
             dist_beta=cfg.RL.BETA,
         )
         self.sample_generator = torch.Generator(device=dev).manual_seed(cfg.SEED)
+        # π_q's minibatch permutations (the JAX trainer's key(SEED + 1))
+        self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
         self.clip_calls = 0  # frozen CLIP tower runs in collects
         self.carry = self.reset()
         self._setup_done = True
         self.setup_seconds = time.perf_counter() - t0
 
-    def reset(self) -> InteractiveCarry:
-        """A fresh carry: every env slot at the start of its first episode,
-        empty memories, beliefs and query track."""
+    def reset(self, order=None, consts: Optional[Dict[str, torch.Tensor]] = None) -> InteractiveCarry:
+        """A fresh carry: every env slot at the start of its first episode
+        (of ``order``'s streams and ``consts``' tables, when given), empty
+        memories, beliefs and query track."""
         cfg, b, dev = self.config, self.env.num_envs, self.device
-        state, obs = self.env.reset()
+        state, obs = self.env.reset(order=order, consts=consts)
         if "category_belief" not in obs:
             obs["category_belief"] = torch.zeros((b, 21), dtype=torch.float32, device=dev)
             obs["location_belief"] = torch.zeros((b, 2), dtype=torch.float32, device=dev)
@@ -209,8 +229,10 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         )
 
     # ------------------------------------------------------------------
-    def make_fns(self, deterministic: bool = False, generator: Optional[torch.Generator] = None) -> InteractiveFns:
-        """The rollout's callables over the current parameters. As in the
+    def make_fns(self, deterministic: bool = False, generator: Optional[torch.Generator] = None,
+                 consts: Optional[Dict[str, torch.Tensor]] = None) -> InteractiveFns:
+        """The rollout's callables over the current parameters, the env's
+        episode tables replaced by ``consts`` when given. As in the
         reference's eval protocol, π_g and π_q always sample (from
         ``generator``, default the trainer's); ``deterministic`` takes π_l's
         argmax (ppo_trainer.py:1917, 1940, 1960)."""
@@ -249,15 +271,17 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
             act_dialog=act_dialog,
             value_option=value_option,
             oracle_action=env.oracle_action,
-            env_step=lambda state, actions, query: env.step(state, actions, query),
+            env_step=lambda state, actions, query: env.step(state, actions, query, consts=consts),
             belief_fn=belief_fn,
             clip_embed=clip_embed,
         )
 
     def collect(self, carry: Optional[InteractiveCarry] = None, deterministic: bool = False,
-                n: Optional[int] = None, generator: Optional[torch.Generator] = None):
+                n: Optional[int] = None, generator: Optional[torch.Generator] = None,
+                consts: Optional[Dict[str, torch.Tensor]] = None):
         """One interactive rollout of ``n`` (default RL.PPO.num_steps) steps
-        from ``carry`` (default: the trainer's own, which is then advanced).
+        from ``carry`` (default: the trainer's own, which is then advanced),
+        the env's episode tables replaced by ``consts`` when given.
         ``deterministic`` is eval mode: the query strategy of QS_METHOD with
         LIMIT_QUERY / HOW_MANY_QUERY / ENFORCED_GAP (ppo_trainer.py:
         1333-1356) and π_l's argmax. Returns (carry, traj)."""
@@ -270,7 +294,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         instr = self.instr_source if self.instr_source is not None else self.instr_bank
         own = carry is None
         carry, traj = collect_rollout_interactive(
-            self.make_fns(deterministic, generator), self.carry if own else carry, instr, self.pe_table,
+            self.make_fns(deterministic, generator, consts), self.carry if own else carry, instr, self.pe_table,
             icfg, self.num_steps if n is None else n,
             generator=self.sample_generator if generator is None else generator,
         )
@@ -278,12 +302,350 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
             self.carry = carry
         return carry, traj
 
+    def collect_dialog(self, carry: Optional[InteractiveCarry] = None, n: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None,
+                       consts: Optional[Dict[str, torch.Tensor]] = None):
+        """One π_l pretraining rollout of ``n`` (default RL.PPO.num_steps)
+        oracle-driven steps from ``carry`` (default: the trainer's own, which
+        is then advanced). Returns (carry, traj)."""
+        self.ensure_setup()
+        fns = self.make_fns(False, generator, consts)
+        env = self.env
+        instr = self.instr_source if self.instr_source is not None else self.instr_bank
+        own = carry is None
+        carry, traj = collect_rollout_dialog_pretrain(
+            fns.act_dialog, lambda state, actions: env.step(state, actions, None, consts=consts),
+            env.oracle_action, fns.belief_fn, self.carry if own else carry, instr, self.config.NUM_DIALOG_STEPS,
+            self.num_steps if n is None else n, sub_instr_bank=self.sub_instr_bank, clip_embed=fns.clip_embed,
+        )
+        if own:
+            self.carry = carry
+        return carry, traj
+
+    def _eval_chunk(self) -> int:
+        """The batched re-evaluation's chunk, 0 for the sequential replay."""
+        smt_cfg = self.config.RL.PPO.SCENE_MEMORY_TRANSFORMER
+        return smt_cfg.batched_eval_chunk if smt_cfg.batched_eval else 0
+
+    def update(self, traj: Dict, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+        """GAE and π_q's PPO update on an interactive trajectory, then with
+        REPLAY_STORE one step of π_l's CE on its queried steps
+        (ddppo_trainer.py:907-944), in place on the parameters. ``perms`` (one
+        permutation of the env slots per epoch) replaces the draws from the
+        trainer's PPO generator. Returns the averaged losses as tensors, with
+        ``dialog_loss`` when π_l was updated."""
+        cfg = self.ppo_cfg
+        adv, ret = compute_gae(traj["rewards"], traj["values_option"], traj["bootstrap_value"],
+                               1.0 - traj["dones"].float(), cfg.gamma, cfg.tau)
+        stats = ppo_update_interactive(
+            self.option_policy.evaluate_step, self.optimizer_q, traj, adv, ret, cfg,
+            unct_coef=self.config.RL.PPO.unct_coef, generator=self.ppo_generator, perms=perms,
+            batched_chunk=self._eval_chunk())
+        if self.config.REPLAY_STORE:
+            stats["dialog_loss"] = self.update_dialog(traj, replay_only=True)["dialog_loss"]
+        return stats
+
+    def update_dialog(self, traj: Dict, replay_only: bool = False) -> Dict[str, torch.Tensor]:
+        """One step of π_l's class-weighted CE: over every oracle step of a
+        dialog-pretraining trajectory, or (``replay_only``) over the queried
+        steps of an interactive one. Returns ``{"dialog_loss": loss}``."""
+        loss = dialog_supervised_update(self.dialog_policy.evaluate_step, self.optimizer_l, traj,
+                                        replay_only=replay_only, batched_chunk=self._eval_chunk())
+        return {"dialog_loss": loss}
+
     # ------------------------------------------------------------------
     def train(self) -> None:
-        raise NotImplementedError(TRAINING_LATER)
+        """π_l pretraining under a dialog config, else π_q's training."""
+        self.ensure_setup()
+        if self.dialog_mode:
+            self._train_dialog()
+        else:
+            self._train_interactive()
 
-    def eval(self) -> None:
-        raise NotImplementedError(TRAINING_LATER)
+    def _train_interactive(self) -> None:
+        """NUM_UPDATES rounds of collect + update (ddppo_trainer.py:
+        515-1200): resume first (RESUME_CHECKPOINT: π_q, π_g, π_l and both
+        optimizers from the interrupted state, else the newest checkpoint),
+        the reward/metric window over finished episodes, ``Metrics/*``,
+        ``Debug/*`` (query statistics) and ``Policy/*`` scalars every
+        LOG_INTERVAL updates, a checkpoint every CHECKPOINT_INTERVAL updates
+        and at the last, and the interrupted-state save + requeue on a
+        preemption signal. Timings as the SAVi trainer's."""
+        cfg = self.config
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
+        window = collections.deque(maxlen=cfg.RL.PPO.reward_window_size)
+        reward_acc = np.zeros((self.env.num_envs,), np.float64)
+        t_start = time.time()
+        ckpt_count = 0
 
-    def update(self, traj):
-        raise NotImplementedError(TRAINING_LATER)
+        preemption.register_signal_handlers()
+        self.timings = timings = Timings()
+        resume = self.try_to_resume()
+        if resume is not None:
+            self.restore(resume)
+            ckpt_count = int(resume.get("_resume_index", 0))
+
+        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
+            for update in range(cfg.NUM_UPDATES):
+                if preemption.should_exit():
+                    preemption.save_interrupted_state(self._checkpoint_payload())
+                    preemption.requeue_job()
+                    break
+                with timings.time("superstep_time"):
+                    with timings.time("collect_time"):
+                        _, traj = self.collect()
+                        self._sync()
+                    with timings.time("update_time"):
+                        stats = {k: float(v) for k, v in self.update(traj).items()}
+                self.carry = self._refresh_episode_stream(self.carry)
+
+                with timings.time("host_time"):
+                    rewards = traj["rewards"].cpu().numpy()
+                    dones = traj["dones"].cpu().numpy()
+                    qcount = traj["query_count"].cpu().numpy()
+                    metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
+                    for t_i in range(rewards.shape[0]):
+                        reward_acc += rewards[t_i]
+                        for b_i in np.nonzero(dones[t_i])[0]:
+                            window.append({"reward": reward_acc[b_i], "query_count": qcount[t_i, b_i],
+                                           **{k: metrics[k][t_i, b_i] for k in metrics}})
+                            reward_acc[b_i] = 0.0
+                self.num_steps_done += rewards.size
+                self.num_updates_done += 1
+
+                if update % cfg.LOG_INTERVAL == 0:
+                    fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
+                    logger.info(f"interactive update {update} fps {fps:.1f} frames {self.num_steps_done} "
+                                + timings.summary())
+                    if window:
+                        means = {k: float(np.mean([w[k] for w in window])) for k in window[0]}
+                        logger.info("window reward {:.3f} success {:.3f} spl {:.3f} queries {:.2f}".format(
+                            means.get("reward", 0), means.get("success", 0), means.get("spl", 0),
+                            means.get("query_count", 0)))
+                        for k, v in means.items():
+                            writer.add_scalar(f"{'Debug' if 'query' in k else 'Metrics'}/{k}", v,
+                                              self.num_steps_done)
+                    for k, v in stats.items():
+                        writer.add_scalar(f"Policy/{k}", v, self.num_steps_done)
+
+                # every CHECKPOINT_INTERVAL updates (ddppo_trainer.py:1191)
+                if (update + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update + 1 == cfg.NUM_UPDATES:
+                    with timings.time("checkpoint_time"):
+                        self.save_checkpoint(f"ckpt.{ckpt_count}.pth")
+                    ckpt_count += 1
+        self.train_seconds = time.time() - t_start
+
+    def _train_dialog(self) -> None:
+        """NUM_UPDATES_DIALOG rounds of ``collect_dialog`` + ``update_dialog``
+        (the rollouts sample π_l from a generator seeded SEED + 2, the JAX
+        trainer's key), ``Policy/dialog_loss`` every LOG_INTERVAL updates and
+        ``CHECKPOINT_FOLDER/vln/ckpt.N.pth`` (π_l's parameters and the
+        config) every CHECKPOINT_INTERVAL_DIALOG updates and at the last.
+        ``dialog_losses`` holds every update's loss."""
+        cfg = self.config
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
+        t_start = time.time()
+        ckpt_count = 0
+        gen = torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)
+        self.timings = timings = Timings()
+        self.dialog_losses = []
+        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
+            for update in range(cfg.NUM_UPDATES_DIALOG):
+                with timings.time("superstep_time"):
+                    with timings.time("collect_time"):
+                        _, traj = self.collect_dialog(generator=gen)
+                        self._sync()
+                    with timings.time("update_time"):
+                        loss = float(self.update_dialog(traj)["dialog_loss"])
+                self.dialog_losses.append(loss)
+                self.carry = self._refresh_episode_stream(self.carry)
+                self.num_steps_done += traj["o_action"].numel()
+                self.num_updates_done += 1
+                if update % cfg.LOG_INTERVAL == 0:
+                    fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
+                    logger.info(f"dialog update {update} loss {loss:.4f} fps {fps:.1f}")
+                    writer.add_scalar("Policy/dialog_loss", loss, self.num_steps_done)
+                if (update + 1) % max(cfg.CHECKPOINT_INTERVAL_DIALOG, 1) == 0 or update + 1 == cfg.NUM_UPDATES_DIALOG:
+                    with timings.time("checkpoint_time"):
+                        save_checkpoint(os.path.join(cfg.CHECKPOINT_FOLDER, "vln"), f"ckpt.{ckpt_count}.pth",
+                                        {"state_dict": to_flax_params(self.dialog_policy), "config": cfg.to_dict()})
+                    ckpt_count += 1
+        self.train_seconds = time.time() - t_start
+
+    def restore(self, ckpt: Dict[str, Any]) -> None:
+        """π_q, π_g and π_l, both optimizers (π_q's step count, which its LR
+        decay reads) and ``num_steps_done`` from a checkpoint this trainer
+        wrote. The belief predictor stays as set up, as in the JAX trainer's
+        resume."""
+        load_flax_params(self.option_policy, ckpt["state_dict"])
+        if "state_dict_goal" in ckpt:
+            load_flax_params(self.goal_policy, ckpt["state_dict_goal"])
+        if "state_dict_vln" in ckpt:
+            load_flax_params(self.dialog_policy, ckpt["state_dict_vln"])
+        if "optim_state" in ckpt:
+            load_adam_flax(self.option_policy, self.optimizer_q.adam, ckpt["optim_state"]["adam"])
+            self.optimizer_q.count = int(ckpt["optim_state"]["count"])
+        if "optim_state_vln" in ckpt:
+            load_adam_flax(self.dialog_policy, self.optimizer_l, ckpt["optim_state_vln"]["adam"])
+        self.num_steps_done = int(ckpt.get("extra_state", {}).get("step", 0))
+
+    def _checkpoint_payload(self) -> Dict[str, Any]:
+        """The JAX trainer's keys: the three policies as Flax trees (the JAX
+        package reads them), both optimizers' own states at the same Flax
+        paths (of the parameters that took a step; π_l's also lists every
+        path of π_l, its frozen CLIP tower's included), the config,
+        ``extra_state`` and, with one, the belief predictor."""
+        modules_l = dict(self.dialog_policy.named_modules())
+        payload = {
+            "state_dict": to_flax_params(self.option_policy),
+            "state_dict_goal": to_flax_params(self.goal_policy),
+            "state_dict_vln": to_flax_params(self.dialog_policy),
+            "optim_state": {"count": self.optimizer_q.count,
+                            "adam": adam_to_flax(self.option_policy, self.optimizer_q.adam)},
+            "optim_state_vln": {"adam": adam_to_flax(self.dialog_policy, self.optimizer_l),
+                                "paths": ["/".join(("params",) + flax_path(modules_l, n))
+                                          for n, _ in self.dialog_policy.named_parameters()]},
+            "config": self.config.to_dict(),
+            "extra_state": {"step": self.num_steps_done},
+        }
+        if self.belief_net is not None:
+            payload["belief_predictor"] = to_flax_params(self.belief_net)
+        return payload
+
+    def save_checkpoint(self, name: str) -> str:
+        return save_checkpoint(self.config.CHECKPOINT_FOLDER, name, self._checkpoint_payload())
+
+    # ------------------------------------------------------------------
+    def _eval_setup(self, ckpt: Dict[str, Any], seed_offset: int):
+        """The env and networks under the checkpoint's config, the eval
+        split dealt exactly once under SOUND_TYPE's sound remap: returns
+        (carry, consts, generator, episode count, rollout budget)."""
+        self.reconfigure_from_checkpoint(ckpt)
+        cfg = self.config
+        if "belief_predictor" in ckpt and self.belief_net is not None:
+            load_flax_params(self.belief_net, ckpt["belief_predictor"])
+        num_episodes = int(self.env.eps["scene"].shape[0])
+        b = self.env.num_envs
+        consts = self.env.eval_consts(cfg.SOUND_TYPE)
+        carry = self.reset(order=exact_once_deal(num_episodes, b), consts=consts)
+        gen = torch.Generator(device=self.device).manual_seed(cfg.SEED + seed_offset)
+        budget = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
+        return carry, consts, gen, min(cfg.TEST_EPISODE_COUNT, num_episodes), budget
+
+    def _eval_checkpoint(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
+        """Interactive eval (ppo_trainer.py:1313-2761): π_q, π_g and π_l of
+        the checkpoint, the configured query strategy (QS_METHOD with the
+        query budget and gap) and π_l's argmax, π_g and π_q sampled from a
+        generator seeded SEED + 13; each episode counted once until
+        TEST_EPISODE_COUNT; ``test_log_ckpt{i}_{sound}.txt`` and
+        ``eval_stats_ckpt{i}_{sound}.npz`` per episode in MODEL_DIR and the
+        means under ``val/*``. A dialog config takes the dialog protocol
+        (a ``vln/ckpt`` holds π_l only and must never load as π_q)."""
+        refuse_videos(self.config)
+        if is_dialog_mode(self.config):
+            return self._eval_checkpoint_dialog(checkpoint_path, writer, checkpoint_index)
+        ckpt = self.load_checkpoint(checkpoint_path)
+        carry, consts, gen, count, budget = self._eval_setup(ckpt, 13)
+        cfg = self.config
+        load_flax_params(self.option_policy, ckpt["state_dict"])
+        if "state_dict_goal" in ckpt:
+            load_flax_params(self.goal_policy, ckpt["state_dict_goal"])
+        if "state_dict_vln" in ckpt:
+            load_flax_params(self.dialog_policy, ckpt["state_dict_vln"])
+
+        stats: Dict[str, list] = collections.defaultdict(list)
+        seen: set = set()
+        log_lines = []
+        records = collections.defaultdict(list)
+        for _ in range(budget):
+            if len(seen) >= count:
+                break
+            carry, traj = self.collect(carry, deterministic=True, generator=gen, consts=consts)
+            dones = traj["dones"].cpu().numpy()
+            ep_ids = traj["metrics"]["episode"].cpu().numpy()
+            metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
+            qcount = traj["query_count"].cpu().numpy()
+            rlmask = traj["rl_mask"].cpu().numpy()
+            for t, bi in zip(*np.nonzero(dones)):
+                eid = int(ep_ids[t, bi])
+                if eid in seen or len(seen) >= count:
+                    continue
+                seen.add(eid)
+                for k in metrics:
+                    stats[k].append(metrics[k][t, bi])
+                stats["query_count"].append(qcount[t, bi])
+                records["episode"].append(eid)
+                records["query_count"].append(float(qcount[t, bi]))
+                for k in ("success", "spl", "na"):
+                    records[k].append(float(metrics[k][t, bi]))
+                log_lines.append(
+                    f"episode {eid}: success={metrics['success'][t, bi]:.0f} "
+                    f"spl={metrics['spl'][t, bi]:.3f} sna={metrics['sna'][t, bi]:.3f} "
+                    f"na={metrics['na'][t, bi]:.0f} queries={qcount[t, bi]:.0f} "
+                    f"vln_steps={float((1.0 - rlmask[: t + 1, bi]).sum()):.0f}")
+        self._last_eval_episode_ids = sorted(seen)
+        os.makedirs(cfg.MODEL_DIR, exist_ok=True)
+        with open(os.path.join(cfg.MODEL_DIR, f"test_log_ckpt{checkpoint_index}_{cfg.SOUND_TYPE}.txt"), "w") as f:
+            f.write("\n".join(log_lines) + "\n")
+        np.savez(os.path.join(cfg.MODEL_DIR, f"eval_stats_ckpt{checkpoint_index}_{cfg.SOUND_TYPE}.npz"),
+                 **{k: np.asarray(v) for k, v in records.items()})
+        means = {k: float(np.mean(v)) for k, v in stats.items()}
+        means.update(eval_episode_accounting(seen, count, "interactive"))
+        logger.info(f"interactive eval ckpt {checkpoint_index}: "
+                    + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))
+        for k, v in means.items():
+            writer.add_scalar(f"val/{k}", v, checkpoint_index)
+        return means
+
+    def _eval_checkpoint_dialog(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
+        """π_l's eval protocol (ss_baselines/savi/config/default.py:348-362,
+        ddppo_trainer.py:181-298): a ``vln/ckpt.N.pth`` loaded as π_l, the
+        eval split's oracle-driven episodes rolled exactly once (π_l sampled
+        from a generator seeded SEED + 17), π_l's per-step action accuracy
+        and CE against the oracle beside the split's nav metrics, under
+        ``val_dialog/*``."""
+        ckpt = self.load_checkpoint(checkpoint_path)
+        carry, consts, gen, count, budget = self._eval_setup(ckpt, 17)
+        load_flax_params(self.dialog_policy, ckpt["state_dict"])
+
+        stats: Dict[str, list] = collections.defaultdict(list)
+        seen: set = set()
+        acc_num = ce_num = n_steps = 0.0
+        for _ in range(budget):
+            if len(seen) >= count:
+                break
+            carry, traj = self.collect_dialog(carry, generator=gen, consts=consts)
+            logits = traj["logits_vln"].double().cpu().numpy()
+            oracle = traj["o_action"].long().cpu().numpy()
+            z = logits - logits.max(axis=-1, keepdims=True)
+            logp = z - np.log(np.exp(z).sum(axis=-1, keepdims=True))
+            picked = np.take_along_axis(logp, oracle[..., None], axis=-1)[..., 0]
+            acc_num += float((logits.argmax(-1) == oracle).sum())
+            ce_num += float(-picked.sum())
+            n_steps += float(oracle.size)
+            dones = traj["dones"].cpu().numpy()
+            ep_ids = traj["metrics"]["episode"].cpu().numpy()
+            metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
+            for t, bi in zip(*np.nonzero(dones)):
+                eid = int(ep_ids[t, bi])
+                if eid in seen or len(seen) >= count:
+                    continue
+                seen.add(eid)
+                for k in metrics:
+                    stats[k].append(metrics[k][t, bi])
+        self._last_eval_episode_ids = sorted(seen)
+        means = {k: float(np.mean(v)) for k, v in stats.items()}
+        means["action_accuracy"] = acc_num / max(n_steps, 1.0)
+        means["action_ce"] = ce_num / max(n_steps, 1.0)
+        means.update(eval_episode_accounting(seen, count, "dialog"))
+        logger.info(f"dialog eval ckpt {checkpoint_index}: " + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))
+        for k, v in means.items():
+            writer.add_scalar(f"val_dialog/{k}", v, checkpoint_index)
+        return means
+
+
+def is_dialog_mode(config) -> bool:
+    """π_l pretraining: ``policy_type: dialog`` or DIALOG_TRAINING."""
+    return config.RL.PPO.policy_type == "dialog" or bool(config.DIALOG_TRAINING)

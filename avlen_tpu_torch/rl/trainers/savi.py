@@ -272,10 +272,6 @@ class SaviTrainer(BaseRLTrainer):
 
 
     # ------------------------------------------------------------------
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def train(self) -> None:
         """NUM_UPDATES rounds of collect + update (ppo_trainer.py:1088-1240):
         resume first (RESUME_CHECKPOINT: the interrupted state, else the

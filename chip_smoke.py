@@ -100,10 +100,36 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     CUDA against CPU with the same weights and sampling draws: the three
     policies' logits within 1e-3 over at least 8 agreeing steps.
 
+13. ``dialog_pretrain``: π_l pretraining through ``run.main`` on
+    savi_pretraining_dialog_training.yaml at full width (8 envs, 3 steps an
+    update, CLIP 512 x 12 layers), 20 updates: ms an update and its split,
+    env-steps/s, the CE at the first and last update, the ``vln/ckpt``'s
+    bytes, and every kernel launch by shape (per update 3 SMT encodes at
+    (8,4,288) and one at (24,4,288), 3 irfft and 3 spectrogram launches).
+14. ``interactive_train``: AVLEN's stage 1 (from train_loop's π_g,
+    belief_pretrain's belief predictor and dialog_pretrain's π_l) → stage 2
+    (resumed exactly, REPLAY_STORE) → eval of the last checkpoint (24
+    episodes, the configured query strategy) → eval of the ``vln/ckpt``
+    (the dialog protocol's accuracy and CE), through ``run.main``; per
+    update the collect, π_q's update (the SMT kernel's forwards, their
+    plain recompute + backward, the rest) and π_l's update from CUDA
+    events, training env-steps/s, checkpoint bytes and save/load ms, eval
+    seconds; 40 SMT launches at (45,151,320) each π_q update, 10 at
+    (90,4,288) each stage-2 π_l update and none in stage 1.
+15. ``interactive_update_reference``: one ``update`` of the tiny world's
+    savi_interactive_2nd_stage.yaml trainer on the CPU and on the card from
+    the same parameters and permutations: losses within 1e-3, both Adams'
+    gradients within 5e-4 + 1e-3·|g|, π_q's and π_l's parameters within 1e-5.
+
 The kernel checks (phase 7) then add ``smt_interactive_shapes``: the SMT
-kernel against its plain version at the three AVLEN shapes, pretraining
-off and on, with both times. Then the ``kernels`` summary line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+kernel against its plain version at every AVLEN shape (the acting step's
+three at 6 envs; π_q's update at (45,151,320), with the gradient through
+the kernel's autograd against plain autograd; π_l's replay at (90,4,288);
+dialog pretraining at (8,4,288) and (24,4,288)), pretraining off and on,
+with both times and the bound; the irfft and spectrogram checks include
+dialog pretraining's 8 envs. Then the ``kernels`` summary line (with each
+kernel's launches in every phase), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -515,6 +541,12 @@ def ptxas_report(log: str, entry: str):
     raise AssertionError(f"no ptxas report for {entry}")
 
 
+# the 16 kHz AVLEN paths' env counts (16,000-tap RIRs: 65,536-point
+# convolutions): the acting step's 6, dialog pretraining's and its eval's 8,
+# and the interactive eval's 10 (get_config's NUM_PROCESSES for an eval)
+AVLEN_AUDIO_ENVS = {"interactive": 6, "dialog_pretrain": 8, "interactive_eval": 10}
+
+
 def check_irfft(dev, gen, build_log: str):
     import torch
 
@@ -553,9 +585,9 @@ def check_irfft(dev, gen, build_log: str):
     if not 0 < per_call <= 1 or any("irfft_cluster" not in n for n in names):
         raise AssertionError(f"partial_irfft: {per_call} kernels per call ({names}), want one launch")
     cases = {}
-    # the AVLEN step's 6 envs (16 kHz, 16,000-tap RIRs), then the 1, 2 and
-    # 4 kHz worlds (128, 200 and 400 taps): one CTA a row
-    for case, b, n, start, length in (("interactive", 6, 65536, 15999, 16000),
+    # the AVLEN paths' env counts, then the 1, 2 and 4 kHz worlds (128, 200
+    # and 400 taps): one CTA a row
+    for case, b, n, start, length in (*((c, b, 65536, 15999, 16000) for c, b in AVLEN_AUDIO_ENVS.items()),
                                       ("fft_len_2048", 16, 2048, 127, 1000),
                                       ("fft_len_4096", 16, 4096, 199, 2000),
                                       ("fft_len_8192", 16, 8192, 399, 4000)):
@@ -577,11 +609,11 @@ def check_irfft(dev, gen, build_log: str):
              cluster=plan_n.cluster, timing=how_n)
         if not math.isfinite(err_n) or err_n > tol_n:
             raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
-    interactive = cases.pop("interactive")
+    avlen = {f"{case}_rows": cases.pop(case) for case in AVLEN_AUDIO_ENVS}
     short = {int(case.rsplit("_", 1)[1]): fields for case, fields in cases.items()}
-    return dict(max_abs_err=max(err, interactive["max_abs_err"]), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
-                interactive_rows=interactive, short_rows=short)
+    return dict(max_abs_err=max([err] + [f["max_abs_err"] for f in avlen.values()]), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
+                **avlen, short_rows=short)
 
 
 def spectrogram_flops_bytes(audio, out, cfg):
@@ -597,11 +629,13 @@ def spectrogram_flops_bytes(audio, out, cfg):
 
 
 def check_spectrogram(dev, gen, build_log: str):
-    """The spectrogram against its plain version in five cases: ``main``
+    """The spectrogram against its plain version in seven cases: ``main``
     (the rollout's 16 envs), ``bank_rows`` (256 envs, a row block of the
     spectrogram bank), ``uneven`` (right ear x1e-3, one silent env),
-    ``short`` (3 envs of 8 kHz) and ``interactive`` (the AVLEN step's 6
-    envs, with the kernel's and the plain version's times). At main and bank_rows also: its time in
+    ``short`` (3 envs of 8 kHz) and the AVLEN paths' env counts
+    (AVLEN_AUDIO_ENVS: ``interactive`` 6, ``dialog_pretrain`` 8,
+    ``interactive_eval`` 10), the last three with the kernel's and the
+    plain version's times and the bound. At main and bank_rows also: its time in
     turns with the radix-2 kernel it replaced (baseline, kernel, kernel,
     baseline), the plain version's time, one ``torch.stft`` of the same
     audio (``stft_call_ms``, the transform alone), kernels per call by
@@ -627,7 +661,7 @@ def check_spectrogram(dev, gen, build_log: str):
         ("bank_rows", 256, 16000, 1.0, None),
         ("uneven", 16, 16000, 1e-3, 5),
         ("short", 3, 8000, 1.0, None),
-        ("interactive", 6, 16000, 1.0, None),
+        *((case, b, 16000, 1.0, None) for case, b in AVLEN_AUDIO_ENVS.items()),
     ):
         cfg = SpectrogramConfig(sampling_rate=sr)
         audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
@@ -678,9 +712,10 @@ def check_spectrogram(dev, gen, build_log: str):
             if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
                 raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
         else:
-            if case == "interactive":
+            if case in AVLEN_AUDIO_ENVS:
                 fields["ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
                 fields["plain_ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
+                fields["bound_ms"], fields["bound_by"] = bound(*spectrogram_flops_bytes(audio, got, cfg))
                 results[case] = fields
             emit("kernel", **fields)
         if not math.isfinite(err) or err > tol:
@@ -696,7 +731,9 @@ def check_spectrogram(dev, gen, build_log: str):
         max_abs_err=max(results["errors"].values()), max_abs_err_by_case=results["errors"],
         bank_rows={k: bank[k] for k in ("ms", "plain_ms", "baseline_ms", "stft_call_ms", "bound_ms",
                                         "bound_by", "bound_bytes_ms", "bound_ops_ms", "share_of_bound")},
-        interactive_rows={k: results["interactive"][k] for k in ("shape", "max_abs_err", "ms", "plain_ms")},
+        **{f"{case}_rows": {k: results[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                           "bound_by")}
+           for case in AVLEN_AUDIO_ENVS},
         ptxas=ptxas)
 
 
@@ -772,7 +809,9 @@ def adam_gradients(module, adam):
 
 
 def share_of_tol(got, want, tol) -> float:
-    """max |got - want| / tol over the entries (tol a number or a tensor)."""
+    """max |got - want| / tol over the entries (tol a number or a tensor, on
+    any device)."""
+    tol = tol.cpu() if hasattr(tol, "cpu") else tol
     return ((got.detach().cpu() - want.detach().cpu()).abs() / tol).max().item()
 
 
@@ -947,15 +986,13 @@ def run_update(trainer, dev, smi: str):
     import torch
 
     from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.rollout_smt import ring_eval_chunk
 
     wrappers = _kernel_wrappers()
     cfg = trainer.config
-    smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
     ppo_cfg = trainer.ppo_cfg
     t_steps, b = trainer.num_steps, trainer.env.num_envs
-    chunk = smt_cfg.batched_eval_chunk
-    while t_steps % chunk:
-        chunk -= 1
+    chunk = ring_eval_chunk(cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, t_steps)
     num_mb = min(ppo_cfg.num_mini_batch, b)
     eval_rows = chunk * (b // num_mb)
     want_launches = ppo_cfg.ppo_epoch * num_mb * (t_steps // chunk)
@@ -1030,9 +1067,14 @@ def run_update(trainer, dev, smi: str):
 
 
 def _max_tree_diff(got, want) -> float:
-    """Max abs difference over two nested dicts of arrays of the same paths."""
+    """Max abs difference over two nested dicts of arrays of the same paths
+    (a list is the map of its indices, as a checkpoint stores it; strings
+    differ infinitely or not at all)."""
     import numpy as np
 
+    got, want = (({str(i): v for i, v in enumerate(x)} if isinstance(x, (list, tuple)) else x) for x in (got, want))
+    if isinstance(want, str):
+        return 0.0 if got == want else math.inf
     if isinstance(want, dict):
         if set(got) != set(want):
             raise AssertionError(f"paths differ: {sorted(set(got) ^ set(want))[:5]}")
@@ -1043,23 +1085,11 @@ def _max_tree_diff(got, want) -> float:
     return float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max(initial=0.0))
 
 
-def trainer_state(trainer):
-    """The trainer's parameters and optimizer states, as its checkpoints
-    hold them."""
-    from avlen_tpu_torch.utils.flax_bridge import adam_to_flax, to_flax_params
-
-    return {
-        "state_dict": to_flax_params(trainer.policy),
-        "belief_predictor": to_flax_params(trainer.belief_net),
-        "optim_state": {"count": trainer.optimizer.count, "adam": adam_to_flax(trainer.policy, trainer.optimizer.adam)},
-        "belief_optim_state": {"adam": adam_to_flax(trainer.belief_net, trainer.belief_optimizer)},
-    }
-
-
 def state_differences(trainer, ckpt):
-    """Max abs difference of each part of ``trainer_state`` to ``ckpt``."""
-    live = trainer_state(trainer)
-    return {k: _max_tree_diff(live[k], ckpt[k]) for k in live}
+    """Max abs difference of each part of the trainer's checkpoint payload
+    (its parameters and optimizer states, SAVi's or AVLEN's) to ``ckpt``."""
+    live = trainer._checkpoint_payload()
+    return {k: _max_tree_diff(live[k], ckpt[k]) for k in live if k not in ("config", "extra_state")}
 
 
 def run_train_loop(smi: str, root: str = TRAIN_DIR):
@@ -1347,20 +1377,46 @@ def run_belief_pretrain(dev, smi: str, root: str = PRETRAIN_DIR):
     return launches, out["checkpoint"]
 
 
+# every SMT encode of the AVLEN paths, (policy, B, memory, features, entry
+# width): the acting step (6 envs), π_q's update re-evaluation (15 steps x 3
+# envs a minibatch), π_l's replay CE (15 steps x 6 envs), dialog pretraining's
+# step and update (8 envs, 3 steps) and the interactive eval's step (10 envs)
+SMT_AVLEN_CASES = (("goal", 6, 150, 276, 288), ("option", 6, 150, 308, 320), ("dialog", 6, 3, 276, 288),
+                   ("option_update", 45, 150, 308, 320), ("dialog_replay", 90, 3, 276, 288),
+                   ("dialog_pretrain_step", 8, 3, 276, 288), ("dialog_pretrain_update", 24, 3, 276, 288),
+                   ("goal_eval", 10, 150, 276, 288), ("option_eval", 10, 150, 308, 320),
+                   ("dialog_eval", 10, 3, 276, 288))
+
+
+def avlen_checked_shapes():
+    """The launch shapes (as ``launch_shapes`` keys them) that the kernel
+    checks hold against the plain versions on the AVLEN paths."""
+    return {"smt_encode": {(b, m + 1, width) for _, b, m, _, width in SMT_AVLEN_CASES},
+            "partial_irfft": {(b, 2, 65536) for b in AVLEN_AUDIO_ENVS.values()},
+            "spectrogram": {(b, 2, 16000) for b in AVLEN_AUDIO_ENVS.values()}}
+
+
 def check_smt_interactive_shapes(dev, gen):
-    """The SMT kernel against its plain version (1e-4 abs) at the AVLEN
-    step's three encodes, B = 6 with a goal: π_g (6,151,288), π_q
-    (6,151,320: 308-d features with the pose at 272-276), π_l over the
-    3-step dialog memory (6,4,288); each with pretraining off and on, with
-    the kernel's and the plain version's times."""
+    """The SMT kernel against its plain version (1e-4 abs) at every AVLEN
+    encode (SMT_AVLEN_CASES), each with pretraining off and on, with the
+    kernel's and the plain version's times and the bound: the acting step's
+    three at B = 6 (π_g (6,151,288), π_q (6,151,320): 308-d features with
+    the pose at 272-276, π_l over the 3-step dialog memory (6,4,288)) and
+    the same three at the eval's B = 10; π_q's update re-evaluation
+    (45,151,320); π_l's replay CE (90,4,288); dialog pretraining's step
+    (8,4,288) and update (24,4,288). At (45,151,320) also the gradient
+    through ``_SMTEncode`` against plain autograd, entries, goal and
+    weights, within 5e-4 + 1e-3·|g|: its backward is the plain recompute,
+    so this holds the wiring (the saved inputs, the weight order), not the
+    kernel's accuracy."""
     import torch
 
     from avlen_tpu_torch.models.smt import SMTStateEncoder
     from avlen_tpu_torch.ops import smt_cuda
 
-    tol, d, nhead, b = 1e-4, 256, 8, 6
+    tol, d, nhead = 1e-4, 256, 8
     results = []
-    for policy, m, feat, width in (("goal", 150, 276, 288), ("option", 150, 308, 320), ("dialog", 3, 276, 288)):
+    for policy, b, m, feat, width in SMT_AVLEN_CASES:
         for pre in (False, True):
             enc = SMTStateEncoder(feat, d, nhead, pose_indices=(272, 276), pretraining=pre,
                                   generator=torch.Generator().manual_seed(7)).to(dev)
@@ -1384,13 +1440,44 @@ def check_smt_interactive_shapes(dev, gen):
                           bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
                           rows_tile=smt_cuda.smt_plan(*entries.shape, d, nhead).rows_tile,
                           timing=dict(ms=how, plain_ms=plain_how))
+            if policy == "option_update" and not pre:
+                fields["grad_share_of_tol"] = _smt_grad_share(params, entries, valid, goal, nhead, gen)
             emit("smt_interactive_shapes", **fields)
             if tuple(entries.shape) != (b, m + 1, width):
                 raise AssertionError(f"smt_interactive_shapes: entries {tuple(entries.shape)}, want {(b, m + 1, width)}")
             if not math.isfinite(err) or err > tol:
                 raise AssertionError(f"smt_interactive_shapes {fields['case']}: max abs err {err} > {tol}")
-            results.append({k: fields[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms")})
+            if not fields.get("grad_share_of_tol", 0.0) <= 1:
+                raise AssertionError(f"smt_interactive_shapes {fields['case']}: gradients differ "
+                                     f"({fields['grad_share_of_tol']} of the tolerance)")
+            results.append({k: fields[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "rows_tile") + (
+                ("grad_share_of_tol",) if "grad_share_of_tol" in fields else ())})
     return results
+
+
+def _smt_grad_share(params, entries, valid, goal, nhead, gen) -> float:
+    """max |g_kernel - g_plain| / (5e-4 + 1e-3·|g_plain|) over the gradients
+    of one random cotangent with respect to the entries, the goal and the
+    weights: ``smt_encode`` (``_SMTEncode``) against plain autograd."""
+    import torch
+
+    from avlen_tpu_torch.ops import smt_cuda
+
+    cot = torch.randn(entries.shape[0], goal.shape[1], generator=gen, device=entries.device)
+    grads = []
+    for fn in (smt_cuda.smt_encode, smt_cuda.smt_encode_plain):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        e, g = entries.detach().clone().requires_grad_(True), goal.detach().clone().requires_grad_(True)
+        out = fn(leaves, e, valid, g, nhead)
+        inputs = [e, g] + [leaves[k] for k in smt_cuda.KERNEL_WEIGHTS]
+        grads.append(torch.autograd.grad(out, inputs, cot, allow_unused=True))
+    share = 0.0
+    for got, want in zip(*grads):
+        if want is None:
+            continue
+        share = max(share, share_of_tol(got, want, GRAD_ATOL + GRAD_RTOL * want.abs()))
+    return share
 
 
 def _traj_summary(traj, seconds: float):
@@ -1570,8 +1657,8 @@ def check_interactive_reference(dev, steps: int = INTERACTIVE_REF_STEPS,
         rec = collections.defaultdict(list)
         make_fns = tr.make_fns
 
-        def recording(deterministic=False, generator=None, make_fns=make_fns, rec=rec):
-            fns = make_fns(deterministic, generator)
+        def recording(deterministic=False, generator=None, consts=None, make_fns=make_fns, rec=rec):
+            fns = make_fns(deterministic, generator, consts)
 
             def wrap(name, fn):
                 logits_at, state_at = outputs[name]
@@ -1632,6 +1719,439 @@ def check_interactive_reference(dev, steps: int = INTERACTIVE_REF_STEPS,
     return fields
 
 
+DIALOG_YAML = "configs/semantic_audionav/savi/savi_pretraining_dialog_training.yaml"
+DIALOG_DIR = "build/chip_smoke_dialog"  # π_l's vln/ckpt of the dialog_pretrain phase
+AVLEN_DIR = "build/chip_smoke_avlen"  # model dir of the interactive_train phase
+DIALOG_UPDATES = 20
+AVLEN_UPDATES = 2  # per stage
+AVLEN_EVAL_EPISODES = 24
+
+
+def run_dialog_pretrain(smi: str, root: str = DIALOG_DIR):
+    """π_l pretraining through ``run.main`` at full width on
+    savi_pretraining_dialog_training.yaml (8 envs, 3 steps an update, the
+    dialog memory of 3, d_model 256, CLIP 512 x 12 layers, 16 kHz with
+    16,000-tap RIRs: 65,536-point convolutions), DIALOG_UPDATES updates and
+    one ``vln/ckpt``. Every kernel's launches and shapes are counted from
+    zero over the run. Fails unless the CE is finite at the first and last
+    update, the checkpoint holds π_l alone, and per update the SMT kernel
+    ran 3 times at (8,4,288) (a step each) and once at (24,4,288) (the
+    update's re-evaluation of the 3 steps), and the irfft and spectrogram
+    3 times (plus the reset's first observation). Returns (launches, the
+    checkpoint's path)."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.rl.rollout_smt import ring_eval_chunk
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        tr = run.main(["--run-type", "train", "--exp-config", DIALOG_YAML, "--model-dir", root,
+                       "NUM_UPDATES_DIALOG", str(DIALOG_UPDATES), "CHECKPOINT_INTERVAL_DIALOG", str(DIALOG_UPDATES)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    cfg = tr.config
+    ckpt = os.path.join(root, "data", "vln", "ckpt.0.pth")
+    totals, n = dict(tr.timings.totals), tr.num_updates_done
+    b, t_steps, m = tr.env.num_envs, tr.num_steps, cfg.NUM_DIALOG_STEPS
+    fft_len, sr = tr.env.bank.rir.fft_len, tr.env.bank.sampling_rate
+    losses = tr.dialog_losses
+    keys = sorted(load_checkpoint(ckpt))
+    fields = dict(
+        nvidia_smi=smi, config=DIALOG_YAML, num_envs=b, num_steps=t_steps, dialog_memory=m,
+        d_model=cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size, clip_width=cfg.RL.PPO.CLIP_WIDTH,
+        clip_layers=cfg.RL.PPO.CLIP_LAYERS, fft_len=fft_len, updates=n, seconds=seconds, setup_s=tr.setup_seconds,
+        loop_s=tr.train_seconds, ms_per_update=totals["superstep_time"] * 1e3 / n,
+        collect_ms_per_update=totals["collect_time"] * 1e3 / n, update_ms_per_update=totals["update_time"] * 1e3 / n,
+        env_steps_per_s=tr.num_steps_done / tr.train_seconds, dialog_loss_first=losses[0], dialog_loss_last=losses[-1],
+        checkpoint=os.path.relpath(ckpt, root), checkpoint_bytes=os.path.getsize(ckpt), checkpoint_keys=keys,
+        checkpoint_save_ms=totals["checkpoint_time"] * 1e3,
+        instructions="bank" if tr.instr_source is None else "host speaker", clip_calls=tr.clip_calls,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30, launches=launches, shapes=_shape_counts(shapes))
+    del tr
+    torch.cuda.empty_cache()
+    emit("dialog_pretrain", **fields)
+    chunk = ring_eval_chunk(cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, t_steps)
+    want = {"smt_encode": {(b, m + 1, 288): n * t_steps, (chunk * b, m + 1, 288): n * (t_steps // chunk)},
+            "partial_irfft": {(b, 2, fft_len): n * t_steps + 1}, "spectrogram": {(b, 2, sr): n * t_steps + 1}}
+    bad = {k: dict(shapes[k]) for k, w in want.items() if dict(shapes[k]) != w}
+    if bad or any(launches[k] != sum(w.values()) for k, w in want.items()):
+        raise AssertionError(f"dialog_pretrain: kernel launches {bad or launches}, want {want}")
+    if not all(math.isfinite(v) for v in losses) or len(losses) != DIALOG_UPDATES:
+        raise AssertionError(f"dialog_pretrain: CE {losses}")
+    if keys != ["config", "state_dict"]:
+        raise AssertionError(f"dialog_pretrain: the vln checkpoint holds {keys}")
+    return launches, ckpt
+
+
+class ShapeTimers:
+    """A ``StreamTimer`` per SMT entries shape: (launches, stream ms) of each
+    shape since the last take."""
+
+    def __init__(self):
+        self.timers = collections.defaultdict(StreamTimer)
+
+    def wrap(self, shape_of, fn):
+        def timed(*args):
+            return self.timers[shape_of(*args)].wrap(fn)(*args)
+
+        return timed
+
+    def take(self):
+        out = {}
+        for shape, t in self.timers.items():
+            calls = len(t.pairs)
+            out[shape] = (calls, t.take_ms())
+        return {s: v for s, v in out.items() if v[0]}
+
+
+def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: str, root: str = AVLEN_DIR):
+    """AVLEN training at full width through ``run.main``, under ``root``:
+    stage 1 (savi_interactive_1st_stage.yaml, 6 envs, 150 steps, memory 150,
+    the oracle instructions banked) from π_g of the train_loop phase, the
+    belief predictor of belief_pretrain and π_l of dialog_pretrain, with
+    AVLEN_UPDATES updates and a checkpoint each; stage 2 (2nd_stage.yaml:
+    RESUME_CHECKPOINT, REPLAY_STORE, the host speaker) resumes stage 1's last
+    checkpoint for AVLEN_UPDATES updates; then ``--run-type eval`` of the
+    last checkpoint (AVLEN_EVAL_EPISODES episodes of the train split) and of
+    dialog_pretrain's ``vln/ckpt`` (the dialog protocol). Per update, from
+    CUDA events on the stream: the collect, π_q's update (the SMT kernel's
+    forwards, their plain recompute + backward, the rest) and π_l's replay
+    update (its own SMT forwards and backward), with training env-steps/s =
+    T·B / (collect + update). Every kernel's launches and launch shapes over
+    the phase are counted from zero. Fails unless stage 1 loaded all three
+    checkpoints and held π_l exactly, stage 2 restored π_q, π_g, π_l and both Adam states
+    exactly, each π_q update ran the SMT kernel ppo_epoch x minibatches x
+    T/chunk = 40 times at (45,151,320), each stage-2 π_l update T/chunk = 10
+    times at (90,4,288) and stage 1 none, the stats are finite, each eval
+    counted its episodes once, and no episode asked more queries than
+    HOW_MANY_QUERY, and every launch shape is one the kernel checks hold
+    against the plain versions (``avlen_checked_shapes``). (The counts are
+    worked out from the configs: 2 epochs x 2 minibatches x 150/15 chunks =
+    40 and 150/15 = 10 here.) Returns the launches."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.rollout_smt import ring_eval_chunk
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer as Trainer
+    from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
+    from avlen_tpu_torch.utils.flax_bridge import to_flax_params
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    opts = ["SPEAKER.BACKEND", "template", "GOAL_CKPT_PATH", goal_ckpt, "VLN_CKPT_PATH", vln_ckpt,
+            "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt]
+    train_opts = opts + ["NUM_UPDATES", str(AVLEN_UPDATES), "CHECKPOINT_INTERVAL", "1"]
+    want_vln = load_checkpoint(vln_ckpt)["state_dict"]
+
+    collect_t, update_t, dialog_t = StreamTimer(), StreamTimer(), StreamTimer()
+    fwd, bwd = ShapeTimers(), ShapeTimers()
+    rounds, resume = [], {}
+    orig = {k: getattr(Trainer, k) for k in ("collect", "update", "update_dialog")}
+    stage = [""]
+
+    def collect(self, *args, **kwargs):
+        if stage[0] == "stage2" and not resume:  # before the resumed run's first update
+            resume.update(state_differences(self, load_checkpoint(list_checkpoints(data)[AVLEN_UPDATES - 1])))
+            resume["num_steps_done"] = self.num_steps_done
+        out = collect_t.wrap(orig["collect"])(self, *args, **kwargs)
+        fwd.take()
+        bwd.take()
+        return out
+
+    def update(self, traj, perms=None):
+        t0 = time.perf_counter()
+        stats = {k: v.item() for k, v in update_t.wrap(orig["update"])(self, traj, perms).items()}
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        update_ms, dialog_ms, collect_ms = update_t.take_ms(), dialog_t.take_ms(), collect_t.take_ms()
+        f, g = fwd.take(), bwd.take()
+        t_steps, b = traj["actions"].shape
+        chunk = ring_eval_chunk(self.config.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, t_steps)
+        q_shape = (chunk * (b // min(self.ppo_cfg.num_mini_batch, b)), self.memory_size + 1,
+                   self.option_policy.net.feature_size + 12)
+        l_shape = (chunk * b, self.config.NUM_DIALOG_STEPS + 1, self.goal_policy.net.feature_size + 12)
+        q_fwd, q_bwd = f.pop(q_shape, (0, 0.0)), g.pop(q_shape, (0, 0.0))
+        l_fwd, l_bwd = f.pop(l_shape, (0, 0.0)), g.pop(l_shape, (0, 0.0))
+        pi_q_ms = update_ms - dialog_ms
+        chunks = t_steps // chunk
+        rounds.append(dict(
+            stage=stage[0], collect_ms=collect_ms, update_ms=update_ms, update_wall_ms=wall_ms,
+            want_smt_launches=dict(pi_q=self.ppo_cfg.ppo_epoch * min(self.ppo_cfg.num_mini_batch, b) * chunks,
+                                   pi_l=chunks if self.config.REPLAY_STORE else 0),
+            pi_q=dict(ms=pi_q_ms, smt_shape=list(q_shape), smt_launches=q_fwd[0], smt_kernel_forward_ms=q_fwd[1],
+                      smt_plain_recompute_and_backward_ms=q_bwd[1], rest_ms=pi_q_ms - q_fwd[1] - q_bwd[1]),
+            pi_l=dict(ms=dialog_ms, smt_shape=list(l_shape), smt_launches=l_fwd[0], smt_kernel_forward_ms=l_fwd[1],
+                      smt_plain_recompute_and_backward_ms=l_bwd[1], rest_ms=dialog_ms - l_fwd[1] - l_bwd[1]),
+            other_smt_launches={"x".join(map(str, s)): c for s, (c, _) in f.items()},
+            train_env_steps_per_s=t_steps * b / ((collect_ms + update_ms) / 1e3), stats=stats))
+        return stats
+
+    def update_dialog(self, traj, replay_only=False):
+        return dialog_t.wrap(orig["update_dialog"])(self, traj, replay_only)
+
+    with launch_shapes() as shapes:
+        wrappers = _kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        fields = dict(nvidia_smi=smi)
+        try:
+            for k, fn in (("collect", collect), ("update", update), ("update_dialog", update_dialog)):
+                setattr(Trainer, k, fn)
+            with smt_cuda.wrapped_passes(
+                    lambda launch: fwd.wrap(lambda entries, *a: tuple(entries.shape), launch),
+                    lambda backward: bwd.wrap(lambda ctx, grad: tuple(ctx.saved_tensors[0].shape), backward)):
+                for name, config, extra in (("stage1", INTERACTIVE_STAGE1, ["SPEAKER.BANK_MODE", "bank"]),
+                                            ("stage2", INTERACTIVE_STAGE2, [])):
+                    stage[0] = name
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    tr = run.main(["--run-type", "train", "--exp-config", config, "--model-dir", root,
+                                   *train_opts, *extra])
+                    seconds = time.perf_counter() - t0
+                    totals = dict(tr.timings.totals)
+                    last = list_checkpoints(data)[-1]
+                    t0 = time.perf_counter()
+                    saved = load_checkpoint(last)
+                    load_ms = (time.perf_counter() - t0) * 1e3
+                    fields[name] = dict(
+                        config=config, seconds=seconds, setup_s=tr.setup_seconds, loop_s=tr.train_seconds,
+                        num_envs=tr.env.num_envs, num_steps=tr.num_steps, memory_size=tr.memory_size,
+                        pretraining=bool(tr.config.RL.PPO.SCENE_MEMORY_TRANSFORMER.pretraining),
+                        replay_store=bool(tr.config.REPLAY_STORE), loaded=sorted(tr.loaded),
+                        instructions="bank" if tr.instr_source is None else "host speaker",
+                        updates=tr.num_updates_done, num_steps_done=tr.num_steps_done,
+                        loop_env_steps_per_s=tr.num_updates_done * tr.num_steps * tr.env.num_envs / tr.train_seconds,
+                        ms_per_update=totals["superstep_time"] * 1e3 / tr.num_updates_done,
+                        checkpoint=os.path.basename(last), checkpoint_bytes=os.path.getsize(last),
+                        checkpoint_save_ms=totals["checkpoint_time"] * 1e3 / tr.num_updates_done,
+                        checkpoint_load_ms=load_ms, optimizer_q_steps=tr.optimizer_q.count,
+                        pi_l_max_abs_diff_to_vln=_max_tree_diff(to_flax_params(tr.dialog_policy), want_vln),
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+                    del tr, saved
+                    torch.cuda.empty_cache()
+        finally:
+            for k, fn in orig.items():
+                setattr(Trainer, k, fn)
+        fields["rounds"] = rounds
+        fields["resume_max_abs_diff"] = resume
+
+        t0 = time.perf_counter()
+        ev = run.main(["--run-type", "eval", "--exp-config", INTERACTIVE_STAGE2, "--model-dir", root, *opts,
+                       "USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
+                       "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
+        torch.cuda.synchronize()
+        ids = ev._last_eval_episode_ids
+        sound = ev.config.SOUND_TYPE
+        index = len(list_checkpoints(data)) - 1
+        queries = np.load(os.path.join(root, f"eval_stats_ckpt{index}_{sound}.npz"))["query_count"]
+        scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(root, "tb")).items() if k.startswith("val/")}
+        fields["eval"] = dict(
+            seconds=time.perf_counter() - t0, setup_s=ev.setup_seconds, num_envs=ev.env.num_envs, episodes=len(ids),
+            distinct_ids=len(set(ids)), qs_method=ev.config.QS_METHOD, limit_query=bool(ev.config.LIMIT_QUERY),
+            how_many_query=ev.config.HOW_MANY_QUERY, max_queries=float(queries.max(initial=0)),
+            mean_queries=float(queries.mean()) if queries.size else None,
+            success=scalars.get("val/success"), spl=scalars.get("val/spl"),
+            episodes_evaluated=scalars.get("val/episodes_evaluated"))
+        how_many = ev.config.HOW_MANY_QUERY
+        del ev
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        dev_dir = os.path.join(root, "dialog_eval")
+        dv = run.main(["--run-type", "eval", "--exp-config", DIALOG_YAML, "--model-dir", dev_dir,
+                       "EVAL_CKPT_PATH_DIR", vln_ckpt, "VIDEO_OPTION", "[]", "EVAL.SPLIT", "test",
+                       "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
+        torch.cuda.synchronize()
+        ids = dv._last_eval_episode_ids
+        scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(dev_dir, "tb")).items()}
+        fields["dialog_eval"] = dict(
+            seconds=time.perf_counter() - t0, num_envs=dv.env.num_envs, episodes=len(ids), distinct_ids=len(set(ids)),
+            action_accuracy=scalars.get("val_dialog/action_accuracy"), action_ce=scalars.get("val_dialog/action_ce"),
+            success=scalars.get("val_dialog/success"),
+            pi_l_max_abs_diff_to_vln=_max_tree_diff(to_flax_params(dv.dialog_policy), want_vln))
+        del dv
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    fields["launches"] = launches
+    fields["shapes"] = _shape_counts(shapes)
+    checked = avlen_checked_shapes()
+    fields["unchecked_shapes"] = {k: sorted(map(list, set(shapes[k]) - checked[k])) for k in checked
+                                  if set(shapes[k]) - checked[k]}
+    emit("interactive_train", **fields)
+
+    s1, s2 = fields["stage1"], fields["stage2"]
+    if s1["loaded"] != ["belief", "dialog", "goal"] or s1["pi_l_max_abs_diff_to_vln"] != 0:
+        raise AssertionError(f"interactive_train: stage 1 loaded {s1['loaded']}, π_l moved "
+                             f"{s1['pi_l_max_abs_diff_to_vln']} from the vln checkpoint")
+    if not resume or any(v != 0 for k, v in resume.items() if k != "num_steps_done"):
+        raise AssertionError(f"interactive_train: stage 2 did not resume stage 1 exactly: {resume}")
+    if s2["pi_l_max_abs_diff_to_vln"] == 0 or not s2["replay_store"]:
+        raise AssertionError("interactive_train: π_l's replay CE did not move π_l in stage 2")
+    for r in rounds:
+        want = r["want_smt_launches"]
+        for who in ("pi_q", "pi_l"):
+            if r[who]["smt_launches"] != want[who]:
+                raise AssertionError(f"interactive_train {r['stage']}: {who}'s update ran {r[who]['smt_launches']} "
+                                     f"SMT launches at {r[who]['smt_shape']}, want {want[who]}")
+        if r["other_smt_launches"] or not all(math.isfinite(v) for v in r["stats"].values()):
+            raise AssertionError(f"interactive_train: {r['other_smt_launches']} {r['stats']}")
+        if ("dialog_loss" in r["stats"]) != (r["stage"] == "stage2"):
+            raise AssertionError(f"interactive_train: {r['stage']} stats {sorted(r['stats'])}")
+    if len(rounds) != 2 * AVLEN_UPDATES:
+        raise AssertionError(f"interactive_train: {len(rounds)} updates, want {2 * AVLEN_UPDATES}")
+    for what in ("eval", "dialog_eval"):
+        e = fields[what]
+        if e["episodes"] != AVLEN_EVAL_EPISODES or e["distinct_ids"] != AVLEN_EVAL_EPISODES:
+            raise AssertionError(f"interactive_train {what}: {e['episodes']} episodes ({e['distinct_ids']} ids)")
+    if fields["eval"]["max_queries"] > how_many or not fields["eval"]["limit_query"]:
+        raise AssertionError(f"interactive_train eval: {fields['eval']['max_queries']} queries > {how_many}")
+    d = fields["dialog_eval"]
+    if not (0 <= d["action_accuracy"] <= 1 and math.isfinite(d["action_ce"])) or d["pi_l_max_abs_diff_to_vln"]:
+        raise AssertionError(f"interactive_train dialog_eval: {d}")
+    if not all(launches.values()):
+        raise AssertionError(f"interactive_train: a kernel never launched: {launches}")
+    if fields["unchecked_shapes"]:
+        raise AssertionError(f"interactive_train: launch shapes no kernel check covers: {fields['unchecked_shapes']}")
+    return launches
+
+
+def _to_device(x, dev):
+    """A trajectory (tensors in dicts, tuples and NamedTuples) on ``dev``."""
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_to_device(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.to(dev)
+
+
+# π_l's parameters after its one replay step: a tenth of its Adam's lr
+# (1e-5), so that a step the card skipped or took wrongly fails (the H100
+# read 6e-8); π_q's (lr 2.5e-4) stay at POLICY_PARAM_TOL
+DIALOG_PARAM_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def dialog_logits_recorded():
+    """Within the block, the π_l logits (T, B, A) each π_l update
+    re-evaluates, in call order."""
+    from avlen_tpu_torch.rl import ppo_interactive
+
+    seen = []
+    names = ("evaluate_dialog_sequence", "evaluate_dialog_sequence_batched")
+    orig = {k: getattr(ppo_interactive, k) for k in names}
+
+    def recording(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.append(out.detach().cpu())
+            return out
+
+        return run
+
+    for k, fn in orig.items():
+        setattr(ppo_interactive, k, recording(fn))
+    try:
+        yield seen
+    finally:
+        for k, fn in orig.items():
+            setattr(ppo_interactive, k, fn)
+
+
+def check_interactive_update_reference(dev, n: int = 12):
+    """One ``InteractiveDDPPOTrainer.update`` (GAE, π_q's PPO with batched
+    ring re-evaluation and the uncertainty CE, then π_l's replay CE) on the
+    tiny world's CPU-collected trajectory of ``n`` steps
+    (savi_interactive_2nd_stage.yaml, REPLAY_STORE), on the CPU (plain
+    versions) and on the card (the SMT kernel forward, its plain-recompute
+    backward), from the same parameters with the same permutations. Losses
+    within 1e-3; π_l's re-evaluated logits within 1e-5
+    (INTERACTIVE_REF_LOGITS_TOL); the gradients each Adam's first moment
+    holds within 5e-4 + 1e-3·|g|; π_q's parameters within 1e-5 and π_l's
+    within 1e-6, where π_l's step on the CPU must exceed twice that, so a
+    skipped step fails. Returns the phase's fields."""
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.ops import smt_cuda
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
+
+    cfg = get_config(INTERACTIVE_STAGE2, opts=interactive_tiny_opts())
+    ref_tr, got_tr = InteractiveDDPPOTrainer(cfg, device="cpu"), InteractiveDDPPOTrainer(cfg, device=dev)
+    ref_tr._setup()
+    got_tr._setup()
+
+    def learners(tr):
+        return {"option": (tr.option_policy, tr.optimizer_q.adam, POLICY_PARAM_TOL),
+                "dialog": (tr.dialog_policy, tr.optimizer_l, DIALOG_PARAM_TOL)}
+
+    start = {part: {k: p.detach().clone() for k, p in module.named_parameters()}
+             for part, (module, _, _) in learners(ref_tr).items()}
+    _, traj = ref_tr.collect(n=n)
+    b = traj["actions"].shape[1]
+    gen = torch.Generator().manual_seed(11)
+    perms = [torch.randperm(b, generator=gen) for _ in range(ref_tr.ppo_cfg.ppo_epoch)]
+    with dialog_logits_recorded() as ref_logits:
+        ref = ref_tr.update(traj, perms=perms)
+    before = smt_cuda.smt_encode.launches
+    with dialog_logits_recorded() as got_logits:
+        got = got_tr.update(_to_device(traj, dev), perms=perms)
+    launches = smt_cuda.smt_encode.launches - before
+    loss_err = {k: abs(got[k].item() - ref[k].item()) for k in ref}
+    logits_err = share_of_tol(got_logits[0], ref_logits[0], 1.0)
+
+    errs = {}
+    for part, (module, adam, param_tol) in learners(ref_tr).items():
+        got_module, got_adam, _ = learners(got_tr)[part]
+        g_ref, g_got = adam_gradients(module, adam), adam_gradients(got_module, got_adam)
+        got_params = dict(got_module.named_parameters())
+        e = dict(grad_share_of_tol=0.0, grad_max_abs=0.0, param_tol=param_tol, param_share_of_tol=0.0,
+                 param_max_abs_err=0.0, param_step_max=0.0)
+        for name, p in module.named_parameters():
+            g = g_ref[name]
+            e["grad_share_of_tol"] = max(e["grad_share_of_tol"],
+                                         share_of_tol(g_got[name], g, GRAD_ATOL + GRAD_RTOL * g.abs()))
+            e["grad_max_abs"] = max(e["grad_max_abs"], g.abs().max().item())
+            e["param_share_of_tol"] = max(e["param_share_of_tol"], share_of_tol(got_params[name], p, param_tol))
+            e["param_max_abs_err"] = max(e["param_max_abs_err"], share_of_tol(got_params[name], p, 1.0))
+            e["param_step_max"] = max(e["param_step_max"], share_of_tol(p, start[part][name], 1.0))
+        errs[part] = e
+    fields = dict(steps=n, envs=b, optimizer_q_steps=got_tr.optimizer_q.count, smt_launches=launches,
+                  queried_steps=int(traj["queried"].sum()), losses={k: [ref[k].item(), got[k].item()] for k in ref},
+                  loss_err=loss_err, loss_tol=1e-3, dialog_logits_max_abs_err=logits_err,
+                  dialog_logits_peak=ref_logits[0].abs().max().item(), dialog_logits_tol=INTERACTIVE_REF_LOGITS_TOL,
+                  errors=errs)
+    emit("interactive_update_reference", **fields)
+    if set(ref) != {"value_loss", "action_loss", "entropy", "unct_loss", "dialog_loss"}:
+        raise AssertionError(f"interactive_update_reference: stats {sorted(ref)}")
+    if not all(math.isfinite(v) and v <= 1e-3 for v in loss_err.values()):
+        raise AssertionError(f"interactive_update_reference: CUDA vs CPU losses differ {loss_err}")
+    if len(ref_logits) != 1 or len(got_logits) != 1 or not logits_err <= INTERACTIVE_REF_LOGITS_TOL:
+        raise AssertionError(f"interactive_update_reference: π_l's re-evaluated logits differ by {logits_err} "
+                             f"({len(ref_logits)} and {len(got_logits)} re-evaluations)")
+    bad = {k: v for k, v in errs.items() if not (v["grad_share_of_tol"] <= 1 and v["param_share_of_tol"] <= 1)}
+    if bad:
+        raise AssertionError(f"interactive_update_reference: CUDA vs CPU gradients or parameters differ {bad}")
+    if not errs["dialog"]["param_step_max"] > 2 * DIALOG_PARAM_TOL:
+        raise AssertionError(f"interactive_update_reference: π_l's step {errs['dialog']['param_step_max']} "
+                             f"is too small for its check to see")
+    if launches < 1:
+        raise AssertionError("interactive_update_reference: the SMT kernel did not run in the update")
+    return fields
+
+
 def main() -> int:
     import torch
 
@@ -1675,9 +2195,12 @@ def main() -> int:
     pretrain_launches, belief_ckpt = run_belief_pretrain(dev, smi)
     from avlen_tpu_torch.utils.checkpoint import list_checkpoints
 
-    interactive_launches = run_interactive(dev, smi, list_checkpoints(os.path.join(model_dir, "data"))[-1],
-                                           belief_ckpt)
+    goal_ckpt = list_checkpoints(os.path.join(model_dir, "data"))[-1]
+    interactive_launches = run_interactive(dev, smi, goal_ckpt, belief_ckpt)
+    dialog_launches, vln_ckpt = run_dialog_pretrain(smi)
+    avlen_launches = run_interactive_train(smi, goal_ckpt, belief_ckpt, vln_ckpt)
     check_interactive_reference(dev)
+    check_interactive_update_reference(dev)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1703,7 +2226,9 @@ def main() -> int:
          "launches_train_loop": train_launches[name], "launches_eval": eval_launches[name],
          "launches_belief_pretrain": pretrain_launches[name],
          "launches_interactive_stage1": interactive_launches["stage1"][name],
-         "launches_interactive_stage2": interactive_launches["stage2"][name], **results[name],
+         "launches_interactive_stage2": interactive_launches["stage2"][name],
+         "launches_dialog_pretrain": dialog_launches[name], "launches_interactive_train": avlen_launches[name],
+         **results[name],
          "status": "ok"}
         for name in meta
     ]

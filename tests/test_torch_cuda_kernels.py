@@ -518,3 +518,63 @@ def test_interactive_collect_on_the_card_matches_the_cpu(dev):
 
     fields = chip_smoke.check_interactive_reference(dev)
     assert fields["agreeing_steps"] >= chip_smoke.INTERACTIVE_REF_MIN_AGREEING
+
+
+@pytest.mark.parametrize("b,m,feat,width", [
+    (45, 150, 308, 320),  # π_q's update: 15 steps x 3 envs a minibatch
+    (90, 3, 276, 288),  # π_l's replay CE: 15 steps x 6 envs
+    (8, 3, 276, 288),  # dialog pretraining's step
+    (24, 3, 276, 288),  # dialog pretraining's update: 3 steps x 8 envs
+    (10, 150, 276, 288),  # π_g at the interactive eval's 10 envs
+    (10, 150, 308, 320),  # π_q at the interactive eval's 10 envs
+    (10, 3, 276, 288),  # π_l at the interactive eval's 10 envs
+])
+def test_smt_encode_at_the_avlen_training_shapes(dev, b, m, feat, width):
+    """The SMT kernel against its plain version at AVLEN training's and the
+    interactive eval's encodes (1e-4), and at π_q's update rows the gradient
+    through ``_SMTEncode`` against plain autograd (5e-4 + 1e-3·|g|; its
+    backward is the plain recompute, so this holds the wiring), as
+    chip_smoke checks them."""
+    import chip_smoke
+    from avlen_tpu_torch.models.smt import SMTStateEncoder
+    from avlen_tpu_torch.ops.smt_cuda import smt_encode, smt_encode_plain
+
+    d, nhead = 256, 8
+    enc = SMTStateEncoder(feat, d, nhead, pose_indices=(272, 276), generator=torch.Generator().manual_seed(b)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(feat + b)
+    x = torch.randn(b, feat, generator=g, device=dev)
+    mem = torch.randn(b, m, feat, generator=g, device=dev)
+    mask = (torch.rand(b, m, generator=g, device=dev) > 0.3).float()
+    gl = torch.randn(b, d, generator=g, device=dev)
+    with torch.no_grad():
+        entries, valid = enc.entries(x, mem, mask)
+        p = dict(enc.named_parameters())
+        got = smt_encode(p, entries, valid, gl, nhead)
+        want = smt_encode_plain(p, entries, valid, gl, nhead)
+    assert tuple(entries.shape) == (b, m + 1, width)
+    assert (got - want).abs().max().item() <= 1e-4
+    if b == 45:
+        assert chip_smoke._smt_grad_share(p, entries, valid, gl, nhead, g) <= 1
+
+
+def test_audio_kernels_at_dialog_pretraining(dev):
+    """Dialog pretraining's 8 envs: (8,2,32769) spectra at 65,536 points,
+    then their (8,2,16000) spectrograms."""
+    _check_audio_kernels(dev, 8, 65536, 15999)
+
+
+def test_audio_kernels_at_the_interactive_eval(dev):
+    """The interactive eval's 10 envs: (10,2,32769) spectra at 65,536
+    points, then their (10,2,16000) spectrograms."""
+    _check_audio_kernels(dev, 10, 65536, 15999)
+
+
+def test_interactive_update_on_the_card_matches_the_cpu(dev):
+    """chip_smoke's interactive_update_reference: one AVLEN update (π_q's
+    PPO and π_l's replay CE) of the tiny world on the card and on the CPU,
+    from the same parameters with the same permutations."""
+    import chip_smoke
+
+    fields = chip_smoke.check_interactive_update_reference(dev)
+    assert fields["smt_launches"] == 2 * 2 * 1 + 1  # π_q: epochs x minibatches x one chunk; π_l: one chunk
+    assert fields["optimizer_q_steps"] == 4

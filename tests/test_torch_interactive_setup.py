@@ -6,9 +6,11 @@ collect gives finite values and log-probs. As in the JAX trainer, GOAL_CKPT_PATH
 VLN_CKPT_PATH and the belief predictor's ``pretrained_path`` load (whole
 state dicts, files the JAX package writes) exactly when the file exists and
 are skipped otherwise; the goal checkpoint here is a SAVi trainer's policy,
-which TRAINER_NAME ddppo with ``policy_type`` smt gives. Training,
-eval, updates and dialog pretraining raise NotImplementedError naming
-ROADMAP item 5b."""
+which TRAINER_NAME ddppo with ``policy_type`` smt gives. ``update`` on
+the collect trains π_q alone in stage 1 (no REPLAY_STORE); the training
+loop, eval and dialog pretraining have files of their own
+(tests/test_torch_interactive_{train,eval,update}.py,
+tests/test_torch_dialog_pretrain.py)."""
 
 import numpy as np
 import pytest
@@ -132,13 +134,13 @@ def test_checkpoints_load_whole_where_they_exist(loaded):
     assert torch.isfinite(traj["values_option"]).all()
 
 
-@pytest.mark.parametrize("method", ["train", "eval", "update"])
-def test_training_raises_until_ported(fresh, method):
+def test_update_trains_pi_q_on_the_collect(fresh):
+    """Last in the file: it moves π_q's parameters."""
     tr, _, traj = fresh
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5b"):
-        getattr(tr, method)(*((traj,) if method == "update" else ()))
-
-
-def test_dialog_pretraining_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5b"):
-        _trainer(["DIALOG_TRAINING", "True"])._setup()
+    before = {n: p.detach().clone() for n, p in tr.option_policy.named_parameters()}
+    stats = tr.update(traj)
+    assert set(stats) == {"value_loss", "action_loss", "entropy", "unct_loss"}  # no REPLAY_STORE in stage 1
+    assert all(torch.isfinite(v) for v in stats.values())
+    assert tr.optimizer_q.count == 2 * 2 and not tr.optimizer_l.state
+    moved = {n.split(".")[0] for n, p in tr.option_policy.named_parameters() if not torch.equal(p, before[n])}
+    assert moved == {"net", "action_head", "critic", "uncertainty"}
