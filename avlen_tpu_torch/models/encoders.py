@@ -1,8 +1,8 @@
-"""Spectrogram encoder (AudioCNN).
+"""Observation encoders (AudioCNN, VisualCNN).
 
-PyTorch counterpart of ``AudioCNN`` in ``avlen_tpu/models/encoders.py``
-(reference audio_cnn.py:15-89): a VALID conv stack → flatten → Linear →
-ReLU. Inputs are NHWC; the flatten runs in NHWC order, as Flax's does, so
+PyTorch counterpart of ``avlen_tpu/models/encoders.py`` (reference
+audio_cnn.py:15-89, visual_cnn.py:44-154): a VALID conv stack → flatten →
+Linear → ReLU. Inputs are NHWC; the flatten runs in NHWC order, as Flax's does, so
 carried weights line up. Kernels are clamped to the running spatial dims
 (so tiny test inputs never collapse to size 0), which fixes the layer
 shapes at construction from ``input_hw``.
@@ -67,3 +67,30 @@ class AudioCNN(nn.Module):
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
         return self.ConvEncoder_0(spectrogram)
+
+
+class VisualCNN(nn.Module):
+    """RGB-D encoder (visual_cnn.py:44-154): rgb (uint8, /255) ‖ depth along
+    channels, in that order; the small-input schedule when min(H, W) < 40,
+    else kernels 8/4/3 with strides 4/2/2."""
+
+    def __init__(self, output_size: int, input_hw: Tuple[int, int], use_rgb: bool = False,
+                 use_depth: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        assert use_rgb or use_depth, "VisualCNN requires rgb and/or depth"
+        self.use_rgb, self.use_depth = use_rgb, use_depth
+        if min(input_hw) < 40:
+            kernels, strides = [(5, 5), (3, 3), (3, 3)], [(2, 2), (2, 2), (1, 1)]
+        else:
+            kernels, strides = [(8, 8), (4, 4), (3, 3)], [(4, 4), (2, 2), (2, 2)]
+        channels = 3 * int(use_rgb) + int(use_depth)
+        self.ConvEncoder_0 = ConvEncoder(channels, input_hw, output_size, kernels, strides,
+                                         generator=generator)
+
+    def forward(self, rgb: Optional[torch.Tensor] = None, depth: Optional[torch.Tensor] = None) -> torch.Tensor:
+        parts = []
+        if self.use_rgb:
+            parts.append(rgb.float() / 255.0)
+        if self.use_depth:
+            parts.append(depth.float())
+        return self.ConvEncoder_0(torch.cat(parts, dim=-1))

@@ -44,6 +44,7 @@ import torch
 
 from avlen_tpu_torch.models.belief_predictor import BeliefState
 from avlen_tpu_torch.models.memory import SMTMemory, insert, reset_where
+from avlen_tpu_torch.rl.rollout import stack_steps
 from avlen_tpu_torch.sim.env import QueryInfo
 
 
@@ -169,12 +170,6 @@ def query_encodings(track: QueryTrack, pe_table: torch.Tensor, pe_max: int):
                        torch.full_like(track.total_step, pe_max - 1))
     return (pe_table[torch.clamp(track.query_count, 0, pe_max - 1)],
             pe_table[torch.clamp(diff, 0, pe_max - 1)])
-
-
-def _stack(items):
-    if isinstance(items[0], dict):
-        return {k: _stack([it[k] for it in items]) for k in items[0]}
-    return torch.stack(items)
 
 
 @torch.no_grad()
@@ -375,7 +370,7 @@ def collect_rollout_interactive(
             track=track_next,
         )
 
-    traj = _stack(steps)
+    traj = stack_steps(steps)
     traj["initial_memories"] = init_memories
 
     # bootstrap value of π_q from the post-rollout state
@@ -498,6 +493,6 @@ def collect_rollout_dialog_pretrain(
             track=track_next,
         )
 
-    traj = _stack(steps)
+    traj = stack_steps(steps)
     traj["initial_memories"] = init_memories
     return c, traj

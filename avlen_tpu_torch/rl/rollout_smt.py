@@ -31,7 +31,7 @@ import torch
 
 from avlen_tpu_torch.models.belief_predictor import BeliefState
 from avlen_tpu_torch.models.memory import SMTMemory, insert, reset_where
-from avlen_tpu_torch.rl.rollout import RolloutBatch
+from avlen_tpu_torch.rl.rollout import RolloutBatch, stack_steps
 
 
 class SMTCarry(NamedTuple):
@@ -41,12 +41,6 @@ class SMTCarry(NamedTuple):
     masks: torch.Tensor  # (B,) f32 — 0 at episode start
     memory: SMTMemory
     belief: BeliefState
-
-
-def _stack(items):
-    if isinstance(items[0], dict):
-        return {k: torch.stack([it[k] for it in items]) for k in items[0]}
-    return torch.stack(items)
 
 
 @torch.no_grad()
@@ -102,7 +96,7 @@ def collect_rollout_smt(
     bootstrap = value_fn(obs_b, prev_a_b, memory_b.features, memory_b.valid)
 
     batch = RolloutBatch(
-        **{k: _stack([s[k] for s in steps]) for k in steps[0]},
+        **stack_steps(steps),
         initial_hidden=initial_memory,
         bootstrap_value=bootstrap,
     )

@@ -12,6 +12,7 @@ eval videos are ROADMAP item 11.
 
 from __future__ import annotations
 
+import collections
 import os
 from typing import Any, Dict, Optional, Union
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from avlen_tpu_torch.config.node import ConfigNode
+from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
 from avlen_tpu_torch.utils.logging import logger
 from avlen_tpu_torch.utils.tb import TensorboardWriter
@@ -80,6 +82,63 @@ def refuse_videos(config: ConfigNode) -> None:
         )
 
 
+def refuse_precision(config: ConfigNode) -> None:
+    """The port computes in float32 only: any other TPU.PRECISION raises."""
+    if config.TPU.PRECISION != "float32":
+        raise NotImplementedError(
+            f"TPU.PRECISION {config.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far"
+        )
+
+
+class EpisodeWindow:
+    """The reward/metric window over finished episodes (the reference's
+    window_episode_stats): each done step appends the episode's summed
+    reward and its step metrics."""
+
+    def __init__(self, num_envs: int, size: int):
+        self.window = collections.deque(maxlen=size)
+        self.reward_acc = np.zeros((num_envs,), np.float64)
+
+    def add(self, batch: RolloutBatch) -> int:
+        """Adds a rollout's finished episodes; returns its T·B."""
+        rewards = batch.rewards.cpu().numpy()
+        dones = batch.dones.cpu().numpy()
+        metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
+        for t in range(rewards.shape[0]):
+            self.reward_acc += rewards[t]
+            for b in np.nonzero(dones[t])[0]:
+                self.window.append({"reward": self.reward_acc[b], **{k: metrics[k][t, b] for k in metrics}})
+                self.reward_acc[b] = 0.0
+        return rewards.size
+
+    def means(self) -> Dict[str, float]:
+        return {k: float(np.mean([w[k] for w in self.window])) for k in (self.window[0] if self.window else {})}
+
+
+def eval_pass(collect, count: int, max_rollouts: int):
+    """The exactly-once eval loop: ``collect()`` rollouts until ``count``
+    distinct episode ids ended (or the budget ran out), each episode's
+    metrics at its done step counted once. Returns (per-metric lists,
+    sorted ids)."""
+    stats: Dict[str, list] = collections.defaultdict(list)
+    seen: set = set()
+    for _ in range(max_rollouts):
+        if len(seen) >= count:
+            break
+        batch = collect()
+        dones = batch.dones.cpu().numpy()
+        ep_ids = batch.metrics["episode"].cpu().numpy()
+        metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
+        for t, bi in zip(*np.nonzero(dones)):
+            eid = int(ep_ids[t, bi])
+            if eid in seen or len(seen) >= count:
+                continue
+            seen.add(eid)
+            for k in metrics:
+                stats[k].append(metrics[k][t, bi])
+    return stats, sorted(seen)
+
+
 class BaseRLTrainer:
     def __init__(self, config: ConfigNode, device: Union[str, torch.device] = "cuda"):
         self.config = config
@@ -108,7 +167,7 @@ class BaseRLTrainer:
         if streamer is None:
             return carry
         state = carry.env_state
-        order = streamer.refresh(state.cursor.cpu().numpy())
+        order = streamer.refresh(self.env.episode_cursor(state).cpu().numpy())
         return carry._replace(env_state=self.env.refresh_ep_order(state, order))
 
     def _sync(self) -> None:

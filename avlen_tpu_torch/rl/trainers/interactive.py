@@ -62,6 +62,7 @@ from avlen_tpu_torch.rl.trainers.base import (
     BaseRLTrainer,
     eval_episode_accounting,
     exact_once_deal,
+    refuse_precision,
     refuse_videos,
 )
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
@@ -94,9 +95,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         t0 = time.perf_counter()
         cfg = self.config
         dev = self.device
-        if cfg.TPU.PRECISION != "float32":
-            raise NotImplementedError(
-                f"TPU.PRECISION {cfg.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far")
+        refuse_precision(cfg)
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         self.policy_type = cfg.RL.PPO.policy_type

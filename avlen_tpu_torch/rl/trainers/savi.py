@@ -17,7 +17,6 @@ the exactly-once eval of a checkpoint or a folder of them.
 
 from __future__ import annotations
 
-import collections
 import os
 import time
 from typing import Any, Dict, Optional, Sequence, Union
@@ -38,10 +37,12 @@ from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.rl.rollout_smt import SMTCarry, collect_rollout_smt, evaluate_sequence_smt_batched
 from avlen_tpu_torch.rl.trainers.base import (
-    METRIC_BLACKLIST,
     BaseRLTrainer,
+    EpisodeWindow,
     eval_episode_accounting,
+    eval_pass,
     exact_once_deal,
+    refuse_precision,
     refuse_videos,
 )
 from avlen_tpu_torch.sim.builder import construct_batched_env
@@ -66,10 +67,7 @@ class SaviTrainer(BaseRLTrainer):
         t0 = time.perf_counter()
         cfg = self.config
         dev = self.device
-        if cfg.TPU.PRECISION != "float32":
-            raise NotImplementedError(
-                f"TPU.PRECISION {cfg.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far"
-            )
+        refuse_precision(cfg)
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
@@ -288,8 +286,7 @@ class SaviTrainer(BaseRLTrainer):
         cfg = self.config
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
-        window = collections.deque(maxlen=cfg.RL.PPO.reward_window_size)
-        reward_acc = np.zeros((self.env.num_envs,), np.float64)
+        window = EpisodeWindow(self.env.num_envs, cfg.RL.PPO.reward_window_size)
         t_start = time.time()
         ckpt_count = 0
 
@@ -318,23 +315,15 @@ class SaviTrainer(BaseRLTrainer):
                 self.carry = self._refresh_episode_stream(self.carry)
 
                 with timings.time("host_time"):
-                    rewards = batch.rewards.cpu().numpy()
-                    dones = batch.dones.cpu().numpy()
-                    metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
-                    for t_i in range(rewards.shape[0]):
-                        reward_acc += rewards[t_i]
-                        for b_i in np.nonzero(dones[t_i])[0]:
-                            window.append({"reward": reward_acc[b_i], **{k: metrics[k][t_i, b_i] for k in metrics}})
-                            reward_acc[b_i] = 0.0
-                self.num_steps_done += rewards.size
+                    self.num_steps_done += window.add(batch)
                 self.num_updates_done += 1
 
                 if update % cfg.LOG_INTERVAL == 0:
                     fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
                     logger.info(f"savi update {update} fps {fps:.1f} frames {self.num_steps_done} "
                                 + timings.summary())
-                    if window:
-                        means = {k: float(np.mean([w[k] for w in window])) for k in window[0]}
+                    means = window.means()
+                    if means:
                         logger.info("window reward {:.3f} success {:.3f} spl {:.3f}".format(
                             means.get("reward", 0), means.get("success", 0), means.get("spl", 0)))
                         for k, v in means.items():
@@ -405,26 +394,16 @@ class SaviTrainer(BaseRLTrainer):
         consts = self.env.eval_consts(self.config.SOUND_TYPE)
         carry = self.reset(order=exact_once_deal(num_episodes, b), consts=consts)
         gen = torch.Generator(device=self.device).manual_seed(self.config.SEED + 11)
-        stats: Dict[str, list] = collections.defaultdict(list)
-        seen: set = set()
-        max_rollouts = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
-        for _ in range(max_rollouts):
-            if len(seen) >= count:
-                break
+
+        def collect():
+            nonlocal carry
             carry, batch = self.collect(carry, deterministic=False, consts=consts, generator=gen)
-            dones = batch.dones.cpu().numpy()
-            ep_ids = batch.metrics["episode"].cpu().numpy()
-            metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
-            for t, bi in zip(*np.nonzero(dones)):
-                eid = int(ep_ids[t, bi])
-                if eid in seen or len(seen) >= count:
-                    continue
-                seen.add(eid)
-                for k in metrics:
-                    stats[k].append(metrics[k][t, bi])
-        self._last_eval_episode_ids = sorted(seen)
+            return batch
+
+        max_rollouts = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
+        stats, self._last_eval_episode_ids = eval_pass(collect, count, max_rollouts)
         means = {k: float(np.mean(v)) for k, v in stats.items()}
-        means.update(eval_episode_accounting(seen, count, "savi"))
+        means.update(eval_episode_accounting(self._last_eval_episode_ids, count, "savi"))
         logger.info(f"savi eval ckpt {checkpoint_index}: " + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))
         for k, v in means.items():
             writer.add_scalar(f"val/{k}", v, checkpoint_index)

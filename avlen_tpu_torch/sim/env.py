@@ -23,13 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from avlen_tpu_torch.ops.audio import SpectrogramConfig, render_audiogoal
+from avlen_tpu_torch.ops.mapping import depth_to_egomap
 from avlen_tpu_torch.sim.graph import UNREACHABLE
 from avlen_tpu_torch.sim.scene import SceneBank
 
 STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT = 0, 1, 2, 3
 
 # sensors of the JAX env that later slices port
-_UNPORTED_SENSORS = ("semantic_object", "egomap", "mpcat40_index")
+_UNPORTED_SENSORS = ("semantic_object", "mpcat40_index")
 
 
 class EnvState(NamedTuple):
@@ -113,6 +114,9 @@ class EnvConfig:
     reward: RewardConfig = RewardConfig()
     has_distractor: bool = False
     record_pose_info: bool = False  # include agent trace in step metrics
+    # EgoMap sensor geometry (nav.py:236-406 MAP_SIZE/MAP_RESOLUTION)
+    egomap_size: int = 31
+    egomap_resolution: float = 0.5
 
 
 class BatchedAudioNavEnv:
@@ -229,6 +233,10 @@ class BatchedAudioNavEnv:
         remapped = torch.as_tensor(draw(0x9E37), dtype=dist.dtype, device=self.device)
         eps["distractor_sound"] = torch.where(dist >= 0, remapped, dist)
         return eps
+
+    def episode_cursor(self, state: EnvState) -> torch.Tensor:
+        """(B,) each slot's position in its episode stream."""
+        return state.cursor
 
     def refresh_ep_order(self, state: EnvState, order) -> EnvState:
         """Swap in a refreshed per-slot episode stream (EpisodeStreamer),
@@ -418,6 +426,11 @@ class BatchedAudioNavEnv:
             obs["rgb"] = bank.rgb[state.scene, state.node, state.rot]
         if "depth" in sensors and bank.depth is not None:
             obs["depth"] = bank.depth[state.scene, state.node, state.rot]
+        if "egomap" in sensors and bank.depth is not None:
+            # EgoMap sensor (nav.py:236-406): depth → egocentric top-down
+            # [obstacle, explored] map
+            obs["egomap"] = depth_to_egomap(bank.depth[state.scene, state.node, state.rot],
+                                            map_size=cfg.egomap_size, resolution=cfg.egomap_resolution)
 
         b = state.node.shape[0]
         if "category" in sensors:

@@ -10,7 +10,8 @@ port module whose submodule names follow the Flax tree:
 * LayerNorm/GroupNorm ``scale``/``bias`` → ``weight``/``bias``;
 * Embed ``embedding`` → ``Embedding.weight``;
 * a bare parameter (the CLIP tower's ``positional_embedding`` and
-  ``text_projection``) keeps its name and layout.
+  ``text_projection``, the recurrent state encoder's ``w_ih``, ``w_hh``,
+  ``b_ih`` and ``b_hh``) keeps its name and layout.
 
 An attention projection's head count is the attention module's own
 ``nhead`` (the CLIP tower's ``heads``) or else that of the nearest enclosing

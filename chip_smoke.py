@@ -121,13 +121,39 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     the same parameters and permutations: losses within 1e-3, both Adams'
     gradients within 5e-4 + 1e-3·|g|, π_q's and π_l's parameters within 1e-5.
 
+16. ``avnav_reference`` and ``avwan_reference``: each baseline trainer on
+    a tiny world at 44.1 kHz with the spectrogram bank off (every step
+    renders through the audio kernels), CUDA against CPU with the CPU's
+    weights: a greedy collect of 10 steps (actions, dones, masks and, for
+    AV-WAN, the action masks and geometric maps exact; logits within 1e-5,
+    values within 1e-4 of their peak, the acoustic map within 1e-4 of its
+    peak), then one update of the CPU's rollout with the same permutations
+    (losses 1e-3, gradients 5e-4 + 1e-3·|g|, parameters 1e-5).
+17. ``avnav_train`` and ``avwan_train``: configs/audionav/av_{nav,wan}/
+    audiogoal_depth.yaml through ``run.main`` at full width (16 envs;
+    AV-Nav hidden 512 and 150 steps, AV-WAN hidden 256 and 20 high-level
+    steps of up to 10), train 2 updates → resume (parameters and Adam
+    state exact) → train 1 → eval (20 episodes for AV-Nav, sampled; 10 for
+    AV-WAN, argmax; each eval's rollout budget bounded, since an AV-WAN
+    agent the planner cannot move holds still). Every setup renders the
+    default world's 1.61 GB 44.1 kHz spectrogram bank: its seconds and
+    bytes, and each audio kernel's launches over the phase, which must
+    equal the builds' (352 a build: 351 at 256 renders, 1 at 32), since no
+    step launches a kernel; 256 random renders of the bank against the
+    plain versions within bf16 rounding (2⁻⁸·|v| + 1e-4). Collect, update
+    and training env-steps/s (AV-WAN: high- and low-level steps),
+    checkpoint bytes and save/load ms, eval seconds.
+
 The kernel checks (phase 7) then add ``smt_interactive_shapes``: the SMT
 kernel against its plain version at every AVLEN shape (the acting step's
 three at 6 envs; π_q's update at (45,151,320), with the gradient through
 the kernel's autograd against plain autograd; π_l's replay at (90,4,288);
 dialog pretraining at (8,4,288) and (24,4,288)), pretraining off and on,
 with both times and the bound; the irfft and spectrogram checks include
-dialog pretraining's 8 envs. Then the ``kernels`` summary line (with each
+dialog pretraining's 8 envs and the 44.1 kHz bank's launches (256 and 32
+renders: (·,2,32769) spectra at 65,536 points, the window [1999, 46099);
+(·,2,44100) audio), with the library call's time (``torch.fft.irfft`` +
+slice; ``torch.stft`` for the transform alone). Then the ``kernels`` summary line (with each
 kernel's launches in every phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -545,6 +571,10 @@ def ptxas_report(log: str, entry: str):
 # convolutions): the acting step's 6, dialog pretraining's and its eval's 8,
 # and the interactive eval's 10 (get_config's NUM_PROCESSES for an eval)
 AVLEN_AUDIO_ENVS = {"interactive": 6, "dialog_pretrain": 8, "interactive_eval": 10}
+# the 44.1 kHz spectrogram bank of the AV-Nav/AV-WAN world: a launch of 256
+# renders (precompute_spectrogram_bank's batch), and the last launch's 32
+BANK_BATCH = 256
+BANK_44K_CASES = {"bank_44k": BANK_BATCH, "bank_44k_last": 32}
 
 
 def check_irfft(dev, gen, build_log: str):
@@ -609,11 +639,34 @@ def check_irfft(dev, gen, build_log: str):
              cluster=plan_n.cluster, timing=how_n)
         if not math.isfinite(err_n) or err_n > tol_n:
             raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
+    # the 44.1 kHz spectrogram bank's launches (2,000-tap RIRs: 65,536
+    # points, the window [1999, 46099)): 256 renders, and the last launch's 32
+    for case, b in ((f"{c}_rows", b) for c, b in BANK_44K_CASES.items()):
+        n, start, length = 65536, 1999, 44100
+        sp = torch.fft.rfft(torch.randn(b, 2, n, generator=gen, device=dev), dim=-1)
+        got_n = irfft_cuda.partial_irfft(sp, n, start, length)
+        want_n = irfft_cuda.partial_irfft_plain(sp, n, start, length)
+        torch.cuda.synchronize()
+        tol_n = 1e-5 * max(want_n.abs().max().item(), 1.0)
+        err_n = (got_n - want_n).abs().max().item()
+        ms_n, how_n = time_ms(lambda: irfft_cuda.partial_irfft(sp, n, start, length))
+        plain_n, _ = time_ms(lambda: irfft_cuda.partial_irfft_plain(sp, n, start, length))
+        lib_n, _ = time_ms(lambda: torch.fft.irfft(sp, n=n, dim=-1)[..., start : start + length])
+        bound_n, bound_by_n = bound(2 * b * 2.5 * n * math.log2(n), sp.numel() * 8 + got_n.numel() * 4)
+        plan_n = irfft_cuda.irfft_plan(n, start, length, 2 * b)
+        cases[case] = dict(shape=list(sp.shape), max_abs_err=err_n, tol=tol_n, ms=ms_n, plain_ms=plain_n,
+                           library_ms=lib_n, bound_ms=bound_n, bound_by=bound_by_n, share_of_bound=bound_n / ms_n,
+                           cluster=plan_n.cluster)
+        emit("kernel", kernel="partial_irfft", case=case, **cases[case], timing=how_n)
+        if not math.isfinite(err_n) or err_n > tol_n:
+            raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
+        del sp, got_n, want_n
+    bank = {f"{case}_rows": cases.pop(f"{case}_rows") for case in BANK_44K_CASES}
     avlen = {f"{case}_rows": cases.pop(case) for case in AVLEN_AUDIO_ENVS}
     short = {int(case.rsplit("_", 1)[1]): fields for case, fields in cases.items()}
-    return dict(max_abs_err=max([err] + [f["max_abs_err"] for f in avlen.values()]), ms=ms,
+    return dict(max_abs_err=max([err] + [f["max_abs_err"] for f in (*avlen.values(), *bank.values())]), ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
-                **avlen, short_rows=short)
+                **avlen, **bank, short_rows=short)
 
 
 def spectrogram_flops_bytes(audio, out, cfg):
@@ -662,6 +715,7 @@ def check_spectrogram(dev, gen, build_log: str):
         ("uneven", 16, 16000, 1e-3, 5),
         ("short", 3, 8000, 1.0, None),
         *((case, b, 16000, 1.0, None) for case, b in AVLEN_AUDIO_ENVS.items()),
+        *((case, b, 44100, 1.0, None) for case, b in BANK_44K_CASES.items()),
     ):
         cfg = SpectrogramConfig(sampling_rate=sr)
         audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
@@ -712,10 +766,18 @@ def check_spectrogram(dev, gen, build_log: str):
             if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
                 raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
         else:
-            if case in AVLEN_AUDIO_ENVS:
+            if case in AVLEN_AUDIO_ENVS or case in BANK_44K_CASES:
                 fields["ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
                 fields["plain_ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
                 fields["bound_ms"], fields["bound_by"] = bound(*spectrogram_flops_bytes(audio, got, cfg))
+                fields["library_ms"] = None
+                if case in BANK_44K_CASES:
+                    window = device_window(dev, cfg.n_fft, cfg.win_length)
+                    flat = audio.reshape(-1, sr)
+                    fields["stft_call_ms"], _ = time_ms(lambda: torch.stft(
+                        flat, cfg.n_fft, cfg.hop_length, win_length=cfg.n_fft, window=window, center=True,
+                        pad_mode="reflect", return_complex=True))
+                    fields["share_of_bound"] = fields["bound_ms"] / fields["ms"]
                 results[case] = fields
             emit("kernel", **fields)
         if not math.isfinite(err) or err > tol:
@@ -734,6 +796,9 @@ def check_spectrogram(dev, gen, build_log: str):
         **{f"{case}_rows": {k: results[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                            "bound_by")}
            for case in AVLEN_AUDIO_ENVS},
+        **{f"{case}_rows": {k: results[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                                           "stft_call_ms", "bound_ms", "bound_by", "share_of_bound")}
+           for case in BANK_44K_CASES},
         ptxas=ptxas)
 
 
@@ -2152,6 +2217,464 @@ def check_interactive_update_reference(dev, n: int = 12):
     return fields
 
 
+# the AV-Nav and AV-WAN stacks (the default world: 2 scenes, up to 53
+# nodes, 4 one-second sounds, 44.1 kHz audio, 2,000-tap RIRs, 64 px depth;
+# its 1.61 GB spectrogram bank is under the 4 GiB cap, so every setup
+# renders it through both audio kernels and no step runs a kernel)
+AVNAV_YAML = "configs/audionav/av_nav/audiogoal_depth.yaml"
+AVWAN_YAML = "configs/audionav/av_wan/audiogoal_depth.yaml"
+BASELINE_DIR = "build/chip_smoke_baselines"  # model dirs of the avnav_train and avwan_train phases
+BASELINE_EVAL_EPISODES = {"avnav": 20, "avwan": 10}
+# the evals' rollout budgets (the trainers' own allow 2,010 rollouts here):
+# AV-Nav's 12 of 150 steps let every env finish its episodes; an AV-WAN
+# env whose planner finds no move toward its argmax waypoint holds still,
+# its episode never ends (the JAX package's MapNav does the same), and 5
+# rollouts of 20 high-level steps bound what such an eval costs
+BASELINE_EVAL_ROLLOUTS = {"avnav": 12, "avwan": 5}
+BANK_CHECK_RENDERS = 256
+BASELINE_REF_STEPS = 10
+BASELINE_LOGITS_TOL, BASELINE_VALUE_TOL = 1e-5, 1e-4  # logits abs; values relative to their peak
+BASELINE_SPECTROGRAM_TOL = 1e-4  # the rollout's spectrograms, abs: the spectrogram kernel's own limit
+BASELINE_METRICS_TOL = 1e-6  # per-step episode metrics, abs (both devices gather the same tables)
+
+
+def baseline_tiny_opts(sampling_rate: int = 44100, rir_length: int = 2000):
+    """A tiny world of the AV-Nav/AV-WAN configs with the spectrogram bank
+    off, so that every step renders its audio through the kernels: 3 envs,
+    16 px depth, hidden 32, episodes of at most 8 steps, AV-WAN's high-level
+    steps of up to 3; two epochs of three one-env minibatches."""
+    return [
+        "TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "4",
+        "TASK_CONFIG.DATASET.SYNTHETIC.NUM_EPISODES", "20",
+        "TASK_CONFIG.DATASET.SYNTHETIC.NUM_SOUNDS", "2",
+        "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", str(rir_length),
+        "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "16",
+        "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", str(sampling_rate),
+        "TASK_CONFIG.SIMULATOR.AUDIO.CACHE_SPECTROGRAMS", "False",
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "8",
+        "NUM_PROCESSES", "3",
+        "PREDICTION_INTERVAL", "3",
+        "RL.PPO.num_steps", str(BASELINE_REF_STEPS),
+        "RL.PPO.hidden_size", "32",
+        "RL.PPO.ppo_epoch", "2",
+        "RL.PPO.num_mini_batch", "3",
+    ]
+
+
+def compare_updates(ref_tr, got_tr, batch, perms, dev, param_tol: float = POLICY_PARAM_TOL):
+    """One ``update`` of ``batch`` with ``perms`` by the CPU trainer and by
+    the card's (the batch moved there), from the same parameters: the loss
+    errors, and per trainer the gradients each Adam's first moment holds and
+    the parameters after, as shares of their tolerances."""
+    ref = ref_tr.update(batch, perms=perms)
+    got = got_tr.update(batch.to(dev), perms=perms)
+    loss_err = {k: abs(got[k].item() - ref[k].item()) for k in ref}
+    g_ref = adam_gradients(ref_tr.policy, ref_tr.optimizer.adam)
+    g_got = adam_gradients(got_tr.policy, got_tr.optimizer.adam)
+    got_params = dict(got_tr.policy.named_parameters())
+    e = dict(grad_share_of_tol=0.0, grad_max_abs=0.0, param_share_of_tol=0.0, param_max_abs_err=0.0)
+    for name, p in ref_tr.policy.named_parameters():
+        g = g_ref[name]
+        e["grad_share_of_tol"] = max(e["grad_share_of_tol"],
+                                     share_of_tol(g_got[name], g, GRAD_ATOL + GRAD_RTOL * g.abs()))
+        e["grad_max_abs"] = max(e["grad_max_abs"], g.abs().max().item())
+        e["param_share_of_tol"] = max(e["param_share_of_tol"], share_of_tol(got_params[name], p, param_tol))
+        e["param_max_abs_err"] = max(e["param_max_abs_err"], share_of_tol(got_params[name], p, 1.0))
+    return dict(losses={k: [ref[k].item(), got[k].item()] for k in ref}, loss_err=loss_err, loss_tol=1e-3,
+                optimizer_steps=got_tr.optimizer.count, errors=e)
+
+
+def check_baseline_reference(dev, stack: str, cfg=None, n: int = BASELINE_REF_STEPS):
+    """The ``stack`` ("avnav" or "avwan") trainer on the tiny world
+    (``baseline_tiny_opts``, the bank off) on the CPU (plain versions) and
+    on the card (kernels at 44.1 kHz), the card's policy holding the CPU's
+    weights: a greedy collect of ``n`` steps, actions, dones and masks
+    exact, act logits within 1e-5, values within 1e-4 of their peak, the
+    spectrograms within 1e-4 and the per-step episode metrics within 1e-6;
+    for AV-WAN also the action masks and the geometric maps (gm, action
+    map) exact, the acoustic map within 1e-4 of its peak (it sums
+    spectrogram intensities). Episodes must end inside the rollout, so that
+    the auto-reset (and AV-WAN's mapper reset and metrics frozen at the done
+    step) is compared. Then one update of the CPU's rollout with the same
+    permutations: losses within 1e-3, gradients within 5e-4 + 1e-3·|g|,
+    parameters within 1e-5. Returns the phase's fields."""
+    import torch
+
+    import avlen_tpu_torch.rl.trainers  # noqa: F401  (registers the trainers)
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.core.registry import registry
+
+    cfg = cfg or get_config(AVNAV_YAML if stack == "avnav" else AVWAN_YAML, opts=baseline_tiny_opts())
+    wrappers = _kernel_wrappers()
+    trainers, batches, logits, launches = {}, {}, {}, {}
+    for side, d in (("ref", "cpu"), ("got", dev)):
+        tr = registry.get_trainer(cfg.TRAINER_NAME)(cfg, device=d)
+        tr._setup()
+        if "ref" in trainers:
+            tr.policy.load_state_dict(trainers["ref"].policy.state_dict())
+        seen = []
+        act = tr.policy.act
+
+        def recording(*args, **kwargs):
+            out = act(*args, **kwargs)
+            seen.append(out[-1].detach().cpu())
+            return out
+
+        tr.policy.act = recording
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        _, batch = tr.collect(deterministic=True, n=n)
+        launches[side] = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        del tr.policy.act
+        trainers[side], batches[side], logits[side] = tr, batch.to("cpu"), torch.stack(seen)
+    ref, got = batches["ref"], batches["got"]
+    exact = {k: bool(torch.equal(getattr(got, k), getattr(ref, k))) for k in ("actions", "dones", "masks")}
+    obs_keys = ("__amask", "gm", "action_map") if stack == "avwan" else ()
+    exact.update({k: bool(torch.equal(got.obs[k], ref.obs[k])) for k in obs_keys})
+    value_peak = max(ref.values.abs().max().item(), 1e-6)
+    errs = dict(logits=share_of_tol(logits["got"], logits["ref"], 1.0),
+                values=share_of_tol(got.values, ref.values, 1.0) / value_peak,
+                spectrogram=share_of_tol(got.obs["spectrogram"], ref.obs["spectrogram"], 1.0),
+                metrics=max(share_of_tol(got.metrics[k], v, 1.0) for k, v in ref.metrics.items()))
+    if stack == "avwan":
+        errs["acoustic_map"] = share_of_tol(got.obs["am"], ref.obs["am"], 1.0) / max(ref.obs["am"].abs().max().item(), 1e-6)
+    gen = torch.Generator().manual_seed(11)
+    b = ref.actions.shape[1]
+    ref_tr, got_tr = trainers["ref"], trainers["got"]
+    perms = [torch.randperm(b, generator=gen) for _ in range(ref_tr.ppo_cfg.ppo_epoch)]
+    update = compare_updates(ref_tr, got_tr, ref, perms, dev)
+    fields = dict(stack=stack, config=cfg.TRAINER_NAME, sampling_rate=cfg.TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE,
+                  fft_len=getattr(got_tr.env, "env", got_tr.env).bank.rir.fft_len,
+                  steps=n, envs=b, dones=int(ref.dones.sum()), exact=exact, errors=errs,
+                  tols=dict(logits=BASELINE_LOGITS_TOL, values=BASELINE_VALUE_TOL, acoustic_map=BASELINE_VALUE_TOL,
+                            spectrogram=BASELINE_SPECTROGRAM_TOL, metrics=BASELINE_METRICS_TOL),
+                  launches=launches["got"], update=update)
+    emit(f"{stack}_reference", **fields)
+    if not all(exact.values()):
+        raise AssertionError(f"{stack}_reference: CUDA vs CPU differ where they must be equal: {exact}")
+    if not (errs["logits"] <= BASELINE_LOGITS_TOL and errs["values"] <= BASELINE_VALUE_TOL
+            and errs.get("acoustic_map", 0.0) <= BASELINE_VALUE_TOL
+            and errs["spectrogram"] <= BASELINE_SPECTROGRAM_TOL and errs["metrics"] <= BASELINE_METRICS_TOL):
+        raise AssertionError(f"{stack}_reference: CUDA vs CPU rollout differs {errs}")
+    if not fields["dones"] > 0:
+        raise AssertionError(f"{stack}_reference: no episode ended in {n} steps of {b} envs")
+    if not all(math.isfinite(v) and v <= 1e-3 for v in update["loss_err"].values()):
+        raise AssertionError(f"{stack}_reference: CUDA vs CPU losses differ {update['loss_err']}")
+    if not (update["errors"]["grad_share_of_tol"] <= 1 and update["errors"]["param_share_of_tol"] <= 1):
+        raise AssertionError(f"{stack}_reference: CUDA vs CPU gradients or parameters differ {update['errors']}")
+    audio = ("partial_irfft", "spectrogram")
+    if any(launches["got"][k] < n for k in audio):
+        raise AssertionError(f"{stack}_reference: the audio kernels ran {launches['got']} times in {n} steps")
+    return fields
+
+
+@contextlib.contextmanager
+def plain_audio():
+    """Within the block the audio path renders through the plain versions,
+    on any device (the kernels' launch counts untouched)."""
+    from avlen_tpu_torch.ops import irfft_cuda, spectrogram_cuda
+
+    saved = irfft_cuda.partial_irfft, spectrogram_cuda.spectrogram
+    irfft_cuda.partial_irfft = irfft_cuda.partial_irfft_plain
+    spectrogram_cuda.spectrogram = spectrogram_cuda.spectrogram_plain
+    try:
+        yield
+    finally:
+        irfft_cuda.partial_irfft, spectrogram_cuda.spectrogram = saved
+
+
+def check_bank_renders(bank, gen, count: int = BANK_CHECK_RENDERS):
+    """``count`` random renders of the card-built spectrogram bank against
+    the same renders through the plain versions on the card: within bf16
+    rounding, 2⁻⁸·|value| + 1e-4."""
+    import torch
+
+    from avlen_tpu_torch.ops.audio import SpectrogramConfig, render_audiogoal
+
+    s, k, _, n = bank.spec_bank.shape[:4]
+    dev = bank.device
+    idx = [torch.randint(0, m, (count,), generator=gen, device=dev) for m in (s, k, 4, n, n)]
+    scene, sound, az, recv, src = idx
+    with plain_audio():
+        _, want = render_audiogoal(
+            bank.sounds_padded[sound], torch.zeros_like(sound), None,
+            torch.ones(sound.shape, dtype=torch.bool, device=dev), bank.sampling_rate,
+            config=SpectrogramConfig(sampling_rate=bank.sampling_rate),
+            rir_f=bank.rir.gather_fft(scene, az, recv, src), rir_len=bank.rir.length)
+    got = bank.spec_bank[scene, sound, az, recv, src].float()
+    share = ((got - want).abs() / (want.abs() * 2.0 ** -8 + 1e-4)).max().item()
+    return dict(renders=count, max_abs_err=(got - want).abs().max().item(), share_of_tol=share,
+                tol="2^-8*|v| + 1e-4", peak=want.abs().max().item())
+
+
+def bank_launch_rows(bank, batch: int = BANK_BATCH):
+    """{rows: launches} of each audio kernel for one build of ``bank``'s
+    spectrogram bank: ``batch`` renders a launch, the last launch the rest."""
+    s, k, _, n = bank.spec_bank.shape[:4]
+    total = s * k * 4 * n * n
+    rows = {batch: total // batch}
+    if total % batch:
+        rows[total % batch] = 1
+    return rows
+
+
+@contextlib.contextmanager
+def bank_builds_recorded():
+    """Within the block, every spectrogram-bank build of a trainer setup:
+    its seconds (ending in a synchronise), bytes, renders, and the rows of
+    each audio-kernel launch it made."""
+    import torch
+
+    from avlen_tpu_torch.ops import irfft_cuda, spectrogram_cuda
+    from avlen_tpu_torch.sim import builder
+
+    builds, rows = [], {"partial_irfft": collections.Counter(), "spectrogram": collections.Counter()}
+    orig = builder.precompute_spectrogram_bank
+    launch = {"partial_irfft": irfft_cuda._launch, "spectrogram": spectrogram_cuda._launch}
+
+    def counted(name):
+        def run(x, *args):
+            rows[name][x.shape[0]] += 1
+            return launch[name](x, *args)
+
+        return run
+
+    def timed(bank, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(bank, *args, **kwargs)
+        torch.cuda.synchronize()
+        builds.append(dict(seconds=time.perf_counter() - t0,
+                           bytes=None if out is None else out.numel() * out.element_size(),
+                           shape=None if out is None else list(out.shape)))
+        return out
+
+    builder.precompute_spectrogram_bank = timed
+    irfft_cuda._launch, spectrogram_cuda._launch = counted("partial_irfft"), counted("spectrogram")
+    try:
+        yield builds, rows
+    finally:
+        builder.precompute_spectrogram_bank = orig
+        irfft_cuda._launch, spectrogram_cuda._launch = launch["partial_irfft"], launch["spectrogram"]
+
+
+def _loop_fields(tr, seconds: float, stack: str):
+    """A train run's readings from its trainer: setup and bank-build
+    seconds, collect and training env-steps/s, ms per update and its split,
+    checkpoint save ms (``Timings``)."""
+    totals = dict(tr.timings.totals)
+    updates = max(tr.num_updates_done, 1)
+    t_steps, b = tr.num_steps, tr.env.num_envs
+    collect_s, update_s = totals["collect_time"], totals["update_time"]
+    f = dict(seconds=seconds, setup_s=tr.setup_seconds, env_build_s=tr.bank_seconds, updates=tr.num_updates_done,
+             num_steps_done=tr.num_steps_done, ms_per_update=(collect_s + update_s) * 1e3 / updates,
+             collect_ms_per_update=collect_s * 1e3 / updates, update_ms_per_update=update_s * 1e3 / updates,
+             collect_env_steps_per_s=t_steps * b * updates / collect_s,
+             train_env_steps_per_s=t_steps * b * updates / (collect_s + update_s),
+             checkpoint_save_ms=totals.get("checkpoint_time", 0.0) * 1e3 / updates,
+             loop_env_steps_per_s=tr.num_steps_done / tr.train_seconds)
+    if stack == "avwan":
+        low = int(tr.env.low_level_steps)
+        f.update(high_level_steps_per_s=f.pop("collect_env_steps_per_s"), low_level_steps_taken=low,
+                 low_level_steps_per_s=low / collect_s,
+                 train_env_steps_per_s=low / (collect_s + update_s))
+    return f
+
+
+def run_baseline_train(stack: str, smi: str, root: str = BASELINE_DIR):
+    """``stack``'s config (AVNAV_YAML or AVWAN_YAML) through ``run.main``
+    at full width, uncut but for the update count: train 2 updates → resume
+    (parameters and Adam state exactly ckpt.1's before its first update) →
+    train 1 more → eval of the last checkpoint (BASELINE_EVAL_EPISODES,
+    split train). Every setup builds the 44.1 kHz spectrogram bank through
+    both audio kernels: the launches over the phase, counted from zero,
+    must be the builds' (ceil(renders / 256) each, the last at the rest's
+    rows), and no step may launch a kernel. On the first setup's bank, 256
+    random renders against the plain versions. Returns the phase's
+    launches."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.core.registry import registry
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    yaml = AVNAV_YAML if stack == "avnav" else AVWAN_YAML
+    model_dir = os.path.abspath(os.path.join(root, stack))
+    shutil.rmtree(model_dir, ignore_errors=True)
+    ckpt1 = os.path.join(model_dir, "data", "ckpt.1.pth")
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    main = lambda *args, run_type="train": run.main(  # noqa: E731
+        ["--run-type", run_type, "--exp-config", yaml, "--model-dir", model_dir, *args])
+    fields = dict(nvidia_smi=smi, config=yaml)
+    with bank_builds_recorded() as (builds, rows):
+        t0 = time.perf_counter()
+        tr = main("NUM_UPDATES", "2", "CHECKPOINT_INTERVAL", "1")
+        torch.cuda.synchronize()
+        fields["train"] = _loop_fields(tr, time.perf_counter() - t0, stack)
+        bank = getattr(tr.env, "env", tr.env).bank
+        if bank.spec_bank is None:
+            raise AssertionError(f"{stack}_train: no spectrogram bank was built")
+        per_build = bank_launch_rows(bank)
+        fields["bank"] = dict(shape=list(bank.spec_bank.shape), dtype=str(bank.spec_bank.dtype),
+                              launch_rows=per_build, sampling_rate=bank.sampling_rate,
+                              rir_length=bank.rir.length, fft_len=bank.rir.fft_len)
+        if stack == "avnav":
+            fields["bank_renders_vs_plain"] = check_bank_renders(bank, torch.Generator(device=bank.device).manual_seed(3))
+        fields["train"]["num_envs"], fields["train"]["num_steps"] = tr.env.num_envs, tr.num_steps
+        fields["train"]["hidden_size"] = tr.config.RL.PPO.hidden_size
+        del tr, bank
+        t0 = time.perf_counter()
+        saved = load_checkpoint(ckpt1)
+        fields["checkpoint"] = dict(bytes=os.path.getsize(ckpt1), load_ms=(time.perf_counter() - t0) * 1e3)
+
+        checked = {}
+        cls = registry.get_trainer("AVNavTrainer" if stack == "avnav" else "AVWanTrainer")
+        collect = cls.collect
+
+        def first_collect(self, *args, **kwargs):
+            if not checked:
+                checked.update(state_differences(self, saved))
+                checked["num_steps_done"] = self.num_steps_done
+            return collect(self, *args, **kwargs)
+
+        cls.collect = first_collect
+        try:
+            t0 = time.perf_counter()
+            tr = main("NUM_UPDATES", "1", "RESUME_CHECKPOINT", "True")
+            torch.cuda.synchronize()
+        finally:
+            cls.collect = collect
+        fields["resume"] = dict(_loop_fields(tr, time.perf_counter() - t0, stack), restored_max_abs_diff=checked,
+                                ckpt2_written=os.path.isfile(os.path.join(model_dir, "data", "ckpt.2.pth")))
+        want_steps = int(saved["extra_state"]["step"])
+        del tr, saved
+
+        count, budget = BASELINE_EVAL_EPISODES[stack], BASELINE_EVAL_ROLLOUTS[stack]
+        budgets = []
+        own_budget = cls.eval_rollout_budget
+
+        def bounded(self, *args):
+            budgets.append(own_budget(self, *args))
+            return min(budgets[-1], budget)
+
+        cls.eval_rollout_budget = bounded
+        try:
+            t0 = time.perf_counter()
+            tr = main("USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
+                      "TEST_EPISODE_COUNT", str(count), run_type="eval")
+            torch.cuda.synchronize()
+        finally:
+            cls.eval_rollout_budget = own_budget
+        ids = tr._last_eval_episode_ids
+        scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(model_dir, "tb")).items() if k.startswith("val/")}
+        fields["eval"] = dict(seconds=time.perf_counter() - t0, num_envs=tr.env.num_envs, episodes=len(ids),
+                              distinct_ids=len(set(ids)), episodes_evaluated=scalars.get("val/episodes_evaluated"),
+                              success=scalars.get("val/success"), spl=scalars.get("val/spl"),
+                              deterministic=tr.eval_deterministic, rollout_budget=budget,
+                              trainer_rollout_budget=budgets[-1])
+        if stack == "avwan":
+            fields["eval"]["low_level_steps_taken"] = int(tr.env.low_level_steps)
+        del tr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    n_builds = sum(1 for b in builds if b["bytes"])
+    want_rows = {r: c * n_builds for r, c in per_build.items()}
+    want = sum(want_rows.values())
+    fields.update(builds=builds, bank_builds=n_builds, launches=launches, want_launches_per_audio_kernel=want,
+                  launch_rows={k: dict(v) for k, v in rows.items()})
+    emit(f"{stack}_train", **fields)
+    for k in ("partial_irfft", "spectrogram"):
+        if launches[k] != want or dict(rows[k]) != want_rows:
+            raise AssertionError(f"{stack}_train: {k} launched {launches[k]} times ({dict(rows[k])} by rows), "
+                                 f"want {want} ({want_rows}) from {n_builds} bank builds")
+    if launches["smt_encode"]:
+        raise AssertionError(f"{stack}_train: the SMT kernel ran {launches['smt_encode']} times")
+    if checked.get("num_steps_done") != want_steps or any(v != 0 for k, v in checked.items() if k != "num_steps_done"):
+        raise AssertionError(f"{stack}_train: resume did not restore ckpt.1 exactly: {checked}")
+    if not fields["resume"]["ckpt2_written"]:
+        raise AssertionError(f"{stack}_train: the resumed run wrote no ckpt.2")
+    if stack == "avnav" and not fields["bank_renders_vs_plain"]["share_of_tol"] <= 1:
+        raise AssertionError(f"{stack}_train: bank renders differ from the plain versions "
+                             f"{fields['bank_renders_vs_plain']}")
+    ev = fields["eval"]
+    if ev["distinct_ids"] != ev["episodes"] or ev["episodes_evaluated"] != ev["episodes"]:
+        raise AssertionError(f"{stack}_train: eval counted {ev}")
+    if stack == "avnav" and ev["episodes"] != count:
+        raise AssertionError(f"{stack}_train: eval finished {ev['episodes']} episodes, want {count}")
+    for part in ("train", "resume"):
+        if not all(math.isfinite(v) for v in fields[part].values() if isinstance(v, float)):
+            raise AssertionError(f"{stack}_train: non-finite readings {fields[part]}")
+    return launches
+
+
+AVWAN_EPISODES = 5  # episodes of the avwan_episodes phase's eval
+
+
+def run_avwan_episodes(smi: str, root: str = BASELINE_DIR):
+    """AV-WAN on the tiny world of ``baseline_tiny_opts`` (44.1 kHz, the
+    bank off, episodes of at most 8 low-level steps), where its argmax
+    agents do end episodes: ``run.main`` trains one update on the card, then
+    evaluates that checkpoint for AVWAN_EPISODES episodes on the card, with
+    the trainer's own rollout budget, and again on the CPU. The card's eval
+    must count every episode once, the same episode ids as the CPU's, and
+    ``val/*`` means within 1e-5 of the CPU's: the episode ends, the mapper
+    reset on done and the metrics frozen at the done step, on the card.
+    Every low-level step renders through both audio kernels."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    model_dir = os.path.abspath(os.path.join(root, "avwan_episodes"))
+    shutil.rmtree(model_dir, ignore_errors=True)
+    opts = baseline_tiny_opts()
+    wrappers = _kernel_wrappers()
+
+    def main(run_type, *args):
+        return run.main(["--run-type", run_type, "--exp-config", AVWAN_YAML, "--model-dir", model_dir,
+                         *args, *opts, "VIDEO_OPTION", "[]"])
+
+    def evaluate(*device):
+        t0 = time.perf_counter()
+        tr = main("eval", *device, "USE_LAST_CKPT", "True", "EVAL.SPLIT", "train",
+                  "TEST_EPISODE_COUNT", str(AVWAN_EPISODES))
+        seconds = time.perf_counter() - t0
+        tb = os.path.join(model_dir, "tb")
+        means = {k: v[-1][1] for k, v in read_scalars(tb).items() if k.startswith("val/")}
+        shutil.rmtree(tb)
+        return dict(seconds=seconds, ids=list(tr._last_eval_episode_ids), means=means,
+                    low_level_steps=int(tr.env.low_level_steps), num_envs=tr.env.num_envs,
+                    deterministic=tr.eval_deterministic)
+
+    main("train", "NUM_UPDATES", "1")
+    for fn in wrappers.values():
+        fn.launches = 0
+    got = evaluate()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    ref = evaluate("--device", "cpu")
+    means_err = max((abs(got["means"][k] - v) for k, v in ref["means"].items() if k in got["means"]),
+                    default=float("inf"))
+    fields = dict(nvidia_smi=smi, config=AVWAN_YAML, want_episodes=AVWAN_EPISODES, card=got, cpu=ref,
+                  means_max_abs_err=means_err, means_tol=1e-5, launches=launches)
+    emit("avwan_episodes", **fields)
+    ids = got["ids"]
+    if not (len(ids) == AVWAN_EPISODES == len(set(ids)) == got["means"].get("val/episodes_evaluated")):
+        raise AssertionError(f"avwan_episodes: the card's eval counted {ids}, "
+                             f"episodes_evaluated {got['means'].get('val/episodes_evaluated')}")
+    if ids != ref["ids"] or set(got["means"]) != set(ref["means"]) or not means_err <= 1e-5:
+        raise AssertionError(f"avwan_episodes: the card's eval differs from the CPU's: {got} vs {ref}")
+    # one launch of each audio kernel renders a low-level step of all envs
+    steps = -(-got["low_level_steps"] // got["num_envs"])
+    if not got["deterministic"] or any(launches[k] < steps for k in ("partial_irfft", "spectrogram")):
+        raise AssertionError(f"avwan_episodes: argmax {got['deterministic']}, launches {launches} for "
+                             f"{got['low_level_steps']} low-level steps of {got['num_envs']} envs")
+    return fields
+
+
 def main() -> int:
     import torch
 
@@ -2201,6 +2724,10 @@ def main() -> int:
     avlen_launches = run_interactive_train(smi, goal_ckpt, belief_ckpt, vln_ckpt)
     check_interactive_reference(dev)
     check_interactive_update_reference(dev)
+    check_baseline_reference(dev, "avnav")
+    check_baseline_reference(dev, "avwan")
+    baseline_launches = {stack: run_baseline_train(stack, smi) for stack in ("avnav", "avwan")}
+    run_avwan_episodes(smi)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2228,6 +2755,8 @@ def main() -> int:
          "launches_interactive_stage1": interactive_launches["stage1"][name],
          "launches_interactive_stage2": interactive_launches["stage2"][name],
          "launches_dialog_pretrain": dialog_launches[name], "launches_interactive_train": avlen_launches[name],
+         "launches_avnav_train": baseline_launches["avnav"][name],
+         "launches_avwan_train": baseline_launches["avwan"][name],
          **results[name],
          "status": "ok"}
         for name in meta

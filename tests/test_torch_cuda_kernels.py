@@ -485,17 +485,17 @@ def test_smt_encode_at_the_interactive_shapes(dev, m, feat, width, pretraining):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-def _check_audio_kernels(dev, rows, fft_len, out_start):
+def _check_audio_kernels(dev, rows, fft_len, out_start, sampling_rate=16000):
     from avlen_tpu_torch.ops.audio import SpectrogramConfig
     from avlen_tpu_torch.ops.irfft_cuda import partial_irfft, partial_irfft_plain
     from avlen_tpu_torch.ops.spectrogram_cuda import spectrogram, spectrogram_plain
 
     g = torch.Generator(device=dev).manual_seed(rows)
     spec = torch.fft.rfft(torch.randn(rows, 2, fft_len, generator=g, device=dev), dim=-1)
-    audio = partial_irfft(spec, fft_len, out_start, 16000)
-    want = partial_irfft_plain(spec, fft_len, out_start, 16000)
+    audio = partial_irfft(spec, fft_len, out_start, sampling_rate)
+    want = partial_irfft_plain(spec, fft_len, out_start, sampling_rate)
     assert (audio - want).abs().max().item() <= 1e-5 * max(want.abs().max().item(), 1.0)
-    cfg = SpectrogramConfig(sampling_rate=16000)
+    cfg = SpectrogramConfig(sampling_rate=sampling_rate)
     audio = 0.3 * audio / audio.abs().max()
     assert (spectrogram(audio, cfg) - spectrogram_plain(audio, cfg)).abs().max().item() <= 1e-4
 
@@ -578,3 +578,38 @@ def test_interactive_update_on_the_card_matches_the_cpu(dev):
     fields = chip_smoke.check_interactive_update_reference(dev)
     assert fields["smt_launches"] == 2 * 2 * 1 + 1  # π_q: epochs x minibatches x one chunk; π_l: one chunk
     assert fields["optimizer_q_steps"] == 4
+
+
+@pytest.mark.parametrize("rows", [256, 32])
+def test_audio_kernels_at_the_44k_bank_rows(dev, rows):
+    """The AV-Nav/AV-WAN world's spectrogram bank: launches of 256 renders
+    and the last of 32, (rows,2,32769) spectra at 65,536 points (44.1 kHz,
+    2,000-tap RIRs, the window [1999, 46099)), then their (rows,2,44100)
+    spectrograms of 276 frames."""
+    _check_audio_kernels(dev, rows, 65536, 1999, 44100)
+
+
+@pytest.mark.parametrize("stack", ["avnav", "avwan"])
+def test_baseline_stack_on_the_card_matches_the_cpu(dev, stack):
+    """chip_smoke's avnav_reference and avwan_reference: the tiny 44.1 kHz
+    world with the bank off, a greedy collect on the card against the CPU
+    (actions, dones, masks and AV-WAN's maps exact; logits 1e-5, values
+    1e-4 of their peak, spectrograms 1e-4, metrics 1e-6; episodes end),
+    then one update of the CPU's rollout with the same permutations (losses
+    1e-3, gradients 5e-4 + 1e-3·|g|, parameters 1e-5)."""
+    import chip_smoke
+
+    fields = chip_smoke.check_baseline_reference(dev, stack)
+    assert fields["update"]["optimizer_steps"] == 2 * 3  # epochs x minibatches
+    assert fields["launches"]["partial_irfft"] >= chip_smoke.BASELINE_REF_STEPS
+    assert fields["dones"] > 0
+
+
+def test_avwan_eval_ends_episodes_on_the_card(dev, tmp_path):
+    """chip_smoke's avwan_episodes: AV-WAN trained one update on the tiny
+    44.1 kHz world, its argmax eval on the card counting 5 episodes once
+    each, the CPU's episode ids and ``val/*`` means within 1e-5."""
+    import chip_smoke
+
+    fields = chip_smoke.run_avwan_episodes("", root=str(tmp_path))
+    assert fields["card"]["ids"] == fields["cpu"]["ids"] and len(fields["card"]["ids"]) == 5

@@ -40,5 +40,6 @@ def test_port_imports_no_jax_and_no_jax_package():
     for sub in ("pretraining.audiogoal_predictor", "dialog.instruction_bank", "dialog.instruction_source",
                 "dialog.speaker.speaker", "dialog.speaker.templates", "dialog.speaker.vocab",
                 "models.clip_bpe", "models.clip_text", "models.dialog_policy", "models.option_policy",
-                "rl.rollout_interactive", "rl.trainers.interactive"):
+                "rl.rollout_interactive", "rl.trainers.interactive", "models.rnn_state_encoder",
+                "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan"):
         assert f"avlen_tpu_torch.{sub}" in names, sub

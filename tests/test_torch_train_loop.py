@@ -157,8 +157,16 @@ def test_find_best_ckpt_idx_agrees_with_jax(runs, tmp_path, tensorboard_without_
 
 
 def test_unported_trainer_name_raises_the_registry_keyerror(tmp_path):
-    with pytest.raises(KeyError, match=r"No trainer registered under 'AVNavTrainer'. Known: \['ddppo', 'savi'\]"):
-        _main(tmp_path, "TRAINER_NAME", "AVNavTrainer")
+    """The port knows the JAX registry's four trainer names; any other
+    raises the registry's KeyError, which lists them."""
+    import avlen_tpu.rl.trainers  # noqa: F401  (registers the JAX trainers)
+    from avlen_tpu.core.registry import registry as jax_registry
+
+    known = ['AVNavTrainer', 'AVWanTrainer', 'ddppo', 'savi']
+    assert run.registry.names("trainer") == jax_registry.names("trainer") == known
+    with pytest.raises(KeyError, match=r"No trainer registered under 'PPOTrainer'. Known: "
+                                       r"\['AVNavTrainer', 'AVWanTrainer', 'ddppo', 'savi'\]"):
+        _main(tmp_path, "TRAINER_NAME", "PPOTrainer")
 
 
 def test_cuda_run_without_a_card_raises(tmp_path, monkeypatch):
