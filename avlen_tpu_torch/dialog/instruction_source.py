@@ -15,32 +15,78 @@ and tokenizes its text with CLIP (ppo_trainer.py:560-561). Two sources:
 
 ``resolve_instruction_source`` chooses from SPEAKER.BANK_MODE (auto, bank,
 callback) and SPEAKER.MAX_BANK_NODES. The JAX package's ``cached`` mode (the
-chunked prefetch for backends without host callbacks) is ROADMAP item 9.
+chunked prefetch for backends without host callbacks) is ROADMAP Queue 1
+item 4. ``speaker_from_config`` serves the template or the neural speaker
+(SPEAKER.BACKEND, SPEAKER.CKPT_PATH), with the panorama features under
+SPEAKER.USE_PANO_FEATURES.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from avlen_tpu_torch.dialog.instruction_bank import APP_PATH_LEN, build_instruction_bank, shortest_path_prefix
-from avlen_tpu_torch.dialog.speaker.speaker import NEURAL_SPEAKER_LATER, Speaker
+from avlen_tpu_torch.dialog.speaker.speaker import GEOM_DIM, NUM_CATEGORIES, Speaker
+from avlen_tpu_torch.dialog.speaker.vocab import Vocabulary
 from avlen_tpu_torch.models.clip_text import CONTEXT_LENGTH, tokenize
 from avlen_tpu_torch.utils.logging import logger
 
 
-def speaker_from_config(cfg, tables_list, rgb_bank=None) -> Speaker:
-    """The Speaker of the instruction channel, from SPEAKER: the template
-    back end; the neural one and the panorama features are ROADMAP item 6."""
+def speaker_from_config(cfg, tables_list, rgb_bank=None, device: Union[str, torch.device] = "cuda") -> Speaker:
+    """The Speaker of the instruction channel, from SPEAKER (the reference
+    always serves its pretrained neural speaker, speaker_pipeline.py:27).
+
+    BACKEND template or neural; a neural speaker's weights, vocabulary and
+    hidden size come from the ``speaker.pth`` at CKPT_PATH (either
+    package's ``train_speaker`` output; FileNotFoundError when it is
+    missing), and its ``world_feat_dim`` must match USE_PANO_FEATURES.
+    USE_PANO_FEATURES encodes ``rgb_bank`` with a PanoramaEncoder (a fresh
+    init, seeded 0, as the JAX package draws its own each call). The
+    speaker and the encoder run on ``device``."""
     sp_cfg = cfg.SPEAKER
+    positions = [t.positions for t in tables_list]
+
+    pano = None
     if sp_cfg.USE_PANO_FEATURES:
-        raise NotImplementedError(
-            "SPEAKER.USE_PANO_FEATURES: the panorama feature encoder is not ported yet (ROADMAP item 6)")
-    if sp_cfg.BACKEND != "template":
-        raise NotImplementedError(NEURAL_SPEAKER_LATER)
-    return Speaker([t.positions for t in tables_list], backend="template")
+        if rgb_bank is None:
+            raise ValueError("SPEAKER.USE_PANO_FEATURES requires an RGB frame bank to encode")
+        from avlen_tpu_torch.dialog.speaker.pano_features import PanoramaEncoder, precompute_panorama_features
+
+        bank = rgb_bank.cpu().numpy() if isinstance(rgb_bank, torch.Tensor) else np.asarray(rgb_bank)
+        encoder = PanoramaEncoder(bank.shape[-1], generator=torch.Generator().manual_seed(0))
+        pano = precompute_panorama_features(bank, encoder, device=device)
+
+    if sp_cfg.BACKEND == "template":
+        return Speaker(positions, backend="template", pano_features=pano, device=device)
+
+    vocab = Vocabulary()
+    neural_params = None
+    hidden = 256
+    if sp_cfg.CKPT_PATH:
+        if not os.path.exists(sp_cfg.CKPT_PATH):
+            raise FileNotFoundError(f"speaker checkpoint not found: {sp_cfg.CKPT_PATH}")
+        from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+
+        ckpt = load_checkpoint(sp_cfg.CKPT_PATH)
+        raw = ckpt["vocab"]
+        if isinstance(raw, dict):  # msgpack round-trips lists as {'0': ...}
+            raw = [raw[k] for k in sorted(raw, key=int)]
+        vocab = Vocabulary.from_words([w.decode() if isinstance(w, bytes) else str(w) for w in raw])
+        neural_params = ckpt["state_dict"]
+        hidden = int(ckpt.get("hidden_size", 256))
+        want_feat = GEOM_DIM + NUM_CATEGORIES + (pano.shape[-1] if pano is not None else 0)
+        have_feat = int(ckpt.get("world_feat_dim", want_feat))
+        if have_feat != want_feat:
+            raise ValueError(
+                f"speaker checkpoint world_feat_dim={have_feat} does not match the "
+                f"configured feature layout ({want_feat}); check SPEAKER.USE_PANO_FEATURES"
+            )
+    return Speaker(positions, backend="neural", vocab=vocab, neural_params=neural_params,
+                   hidden_size=hidden, pano_features=pano, device=device)
 
 
 class HostSpeakerInstructionSource:
@@ -91,18 +137,20 @@ class HostSpeakerInstructionSource:
         return torch.from_numpy(self.host_tokens(*host)).to(newly.device)
 
 
-def resolve_instruction_source(cfg, tables_list, rgb_bank=None) -> Tuple[Optional[np.ndarray], Optional[object]]:
+def resolve_instruction_source(cfg, tables_list, rgb_bank=None, device: Union[str, torch.device] = "cuda"
+                               ) -> Tuple[Optional[np.ndarray], Optional[object]]:
     """(bank, source): exactly one is not None. BANK_MODE auto banks worlds
     whose scenes all have at most MAX_BANK_NODES nodes and calls the host
-    speaker otherwise; bank and callback force one."""
-    speaker = speaker_from_config(cfg, tables_list, rgb_bank=rgb_bank)
+    speaker otherwise; bank and callback force one. The speaker runs on
+    ``device``."""
     mode = cfg.SPEAKER.BANK_MODE
-    n_max = max(t.num_nodes for t in tables_list)
     if mode == "cached":
         raise NotImplementedError(
             "SPEAKER.BANK_MODE 'cached': the chunked instruction prefetch is not ported "
-            "(ROADMAP item 9); the port's eager rollout calls the host speaker directly "
+            "(ROADMAP Queue 1 item 4); the port's eager rollout calls the host speaker directly "
             "(BANK_MODE callback)")
+    speaker = speaker_from_config(cfg, tables_list, rgb_bank=rgb_bank, device=device)
+    n_max = max(t.num_nodes for t in tables_list)
     if mode == "auto":
         mode = "bank" if n_max <= cfg.SPEAKER.MAX_BANK_NODES else "callback"
     if mode == "bank":

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from avlen_tpu_torch.models.clip_bpe import CONTEXT_LENGTH, VOCAB_SIZE, default_tokenizer
-from avlen_tpu_torch.models.init import _TRUNC_STD
+from avlen_tpu_torch.models.init import lecun_normal_
 
 SOT_TOKEN = 49406
 EOT_TOKEN = 49407
@@ -38,17 +38,9 @@ def tokenize(texts: Union[str, Sequence[str]], context_length: int = CONTEXT_LEN
     return default_tokenizer().tokenize(texts, context_length)
 
 
-@torch.no_grad()
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax's default Dense/DenseGeneral init: a fan-in normal of variance
-    1/fan_in, truncated at two standard deviations and rescaled."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-
-
 def _dense(cin: int, cout: int, generator: Optional[torch.Generator]) -> nn.Linear:
     layer = nn.Linear(cin, cout)
-    _lecun_normal_(layer.weight, cin, generator)
+    lecun_normal_(layer.weight, cin, generator)
     nn.init.zeros_(layer.bias)
     return layer
 

@@ -30,6 +30,14 @@ def kaiming_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None
 
 
 @torch.no_grad()
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax's default Dense/DenseGeneral init: a fan-in normal of variance
+    1/fan_in, truncated at two standard deviations and rescaled."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
 def orthogonal_(w: torch.Tensor, gain: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return torch.nn.init.orthogonal_(w, gain, generator=generator)
 

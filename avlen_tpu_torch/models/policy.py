@@ -59,26 +59,32 @@ def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
 class AudioNavBaselineNet(nn.Module):
     """Spectrogram CNN ⊕ visual CNN → GRU (av_nav/ppo/policy.py:136-212).
     ``visual_hw`` is the frames' (H, W), which fixes the visual tower's
-    layer shapes."""
+    layer shapes; with neither ``use_rgb`` nor ``use_depth`` there is no
+    visual tower (as in the JAX package) and ``visual_hw`` is not read."""
 
     def __init__(
         self,
         hidden_size: int = 512,
         spectrogram_hw: Tuple[int, int] = (65, 26),
-        visual_hw: Tuple[int, int] = (64, 64),
+        visual_hw: Optional[Tuple[int, int]] = (64, 64),
         use_rgb: bool = False,
         use_depth: bool = True,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.hidden_size = hidden_size
+        self.use_visual = use_rgb or use_depth
         self.audio_encoder = AudioCNN(hidden_size, spectrogram_hw, generator=generator)
-        self.visual_encoder = VisualCNN(hidden_size, visual_hw, use_rgb, use_depth, generator=generator)
-        self.state_encoder = RNNStateEncoder(2 * hidden_size, hidden_size, generator=generator)
+        if self.use_visual:
+            self.visual_encoder = VisualCNN(hidden_size, visual_hw, use_rgb, use_depth, generator=generator)
+        rnn_input = (2 if self.use_visual else 1) * hidden_size
+        self.state_encoder = RNNStateEncoder(rnn_input, hidden_size, generator=generator)
 
     def features(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return torch.cat([self.audio_encoder(obs["spectrogram"]),
-                          self.visual_encoder(obs.get("rgb"), obs.get("depth"))], dim=-1)
+        x = [self.audio_encoder(obs["spectrogram"])]
+        if self.use_visual:
+            x.append(self.visual_encoder(obs.get("rgb"), obs.get("depth")))
+        return torch.cat(x, dim=-1)
 
     def forward(self, obs, hidden, masks):
         return self.state_encoder(self.features(obs), hidden, masks)

@@ -36,7 +36,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     eval_pass,
     exact_once_deal,
     refuse_precision,
-    refuse_videos,
 )
 from avlen_tpu_torch.sim.builder import construct_batched_env
 from avlen_tpu_torch.utils import preemption
@@ -83,12 +82,18 @@ class AVNavTrainer(BaseRLTrainer):
     def _make_policy(self, gen: torch.Generator) -> Policy:
         """The policy, initialised from ``gen``, sized to ``self.env``."""
         cfg = self.config
+        sensors = self.env.config.sensors
+        use_rgb, use_depth = "rgb" in sensors, "depth" in sensors
+        # a bank without frames (reference data with no cached frames)
+        # leaves depth out of the sensors, and the net without a visual tower
+        frames = self.env.bank.depth if use_depth else self.env.bank.rgb if use_rgb else None
         return Policy(
             AudioNavBaselineNet(
                 hidden_size=cfg.RL.PPO.hidden_size,
                 spectrogram_hw=self.env.spec_config.out_shape[:2],
-                visual_hw=tuple(self.env.bank.depth.shape[3:5]),
-                use_rgb="rgb" in self.env.config.sensors,
+                visual_hw=tuple(frames.shape[3:5]) if frames is not None else None,
+                use_rgb=use_rgb,
+                use_depth=use_depth,
                 generator=gen,
             ),
             num_actions=len(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
@@ -232,6 +237,7 @@ class AVNavTrainer(BaseRLTrainer):
 
     # ------------------------------------------------------------------
     eval_deterministic = False  # av_nav's reference eval samples (ppo_trainer.py:518)
+    videos_from_first_rollout_only = True  # the JAX AV-Nav trainer's rule (avnav.py:385-387)
 
     def _eval_checkpoint(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
         """The exactly-once eval of one checkpoint: the env and policy
@@ -241,8 +247,9 @@ class AVNavTrainer(BaseRLTrainer):
         seeded SEED+7 (sampled for AV-Nav, argmax for AV-WAN, as each stack's
         reference evaluates), each episode id counted once until
         TEST_EPISODE_COUNT; the means go to ``val/*`` with
-        ``episodes_evaluated``. Eval videos are refused (``refuse_videos``)."""
-        refuse_videos(self.config)
+        ``episodes_evaluated``; with VIDEO_OPTION, the episode videos of
+        ``eval_videos``: AV-Nav's from the first rollout only, AV-WAN's
+        from each rollout until 2 were made (each JAX trainer's rule)."""
         ckpt = self.load_checkpoint(checkpoint_path)
         self.reconfigure_from_checkpoint(ckpt)
         load_flax_params(self.policy, ckpt["state_dict"])
@@ -260,7 +267,9 @@ class AVNavTrainer(BaseRLTrainer):
             return batch
 
         max_rollouts = self.eval_rollout_budget(num_episodes, b, self.max_episode_steps())
-        stats, self._last_eval_episode_ids = eval_pass(collect, count, max_rollouts)
+        stats, self._last_eval_episode_ids = eval_pass(
+            collect, count, max_rollouts,
+            self.eval_videos(writer, checkpoint_index, self.videos_from_first_rollout_only))
         means = {k: float(np.mean(v)) for k, v in stats.items()}
         means.update(eval_episode_accounting(self._last_eval_episode_ids, count, self.stack))
         logger.info(f"{self.stack} eval ckpt {checkpoint_index}: "

@@ -31,6 +31,7 @@ from avlen_tpu_torch.sim.mapnav import BatchedMapNavEnv, MapNavConfig
 class AVWanTrainer(AVNavTrainer):
     stack = "avwan"
     eval_deterministic = True  # av_wan's trainer evaluates with argmax actions
+    videos_from_first_rollout_only = False  # until 2 videos, as the JAX trainer (avwan.py:310)
     preemption_poll = "before"  # each update, as the JAX AV-WAN trainer polls
 
     def _make_env(self, num_envs: Optional[int]) -> BatchedMapNavEnv:

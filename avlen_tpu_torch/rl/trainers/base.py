@@ -5,9 +5,9 @@ with BaseTrainer/BaseRLTrainer, ss_baselines/common/base_trainer.py:
 22-289): ``train()`` / ``eval()`` entry points, checkpoint folder polling
 during eval, the eval-config merge priority (current EVAL opts over the
 checkpoint's saved config, base_trainer.py:125-158), resume, and the
-exactly-once eval bookkeeping. The JAX package's device mesh and buffer
-donation belong to multi-card training (ROADMAP item 8) and to the TPU;
-eval videos are ROADMAP item 11.
+exactly-once eval bookkeeping, and the eval's top-down-map videos. The
+JAX package's device mesh and buffer donation belong to multi-card
+training (ROADMAP Queue 1 item 6) and to the TPU.
 """
 
 from __future__ import annotations
@@ -23,7 +23,12 @@ from avlen_tpu_torch.config.node import ConfigNode
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
 from avlen_tpu_torch.utils.logging import logger
+from avlen_tpu_torch.utils.maps import _to_px, draw_top_down_map, reveal_fog_of_war
 from avlen_tpu_torch.utils.tb import TensorboardWriter
+from avlen_tpu_torch.utils.video import generate_video
+
+# the step metrics an eval video reads
+VIDEO_METRICS = ("agent_node", "agent_rot", "agent_scene", "goal_node", "spl", "success")
 
 # step-metric keys that are bookkeeping, not scalar performance measures
 # (the reference blacklists map-like info in _extract_scalars_from_info,
@@ -72,16 +77,6 @@ def eval_episode_accounting(seen, count: int, where: str) -> Dict[str, float]:
     return {"episodes_evaluated": float(len(seen))}
 
 
-def refuse_videos(config: ConfigNode) -> None:
-    """Eval videos (VIDEO_OPTION) are not ported yet: raise rather than
-    silently write nothing."""
-    if config.VIDEO_OPTION:
-        raise NotImplementedError(
-            f"VIDEO_OPTION {list(config.VIDEO_OPTION)}: eval videos are not ported yet "
-            "(ROADMAP item 11); run eval with VIDEO_OPTION []"
-        )
-
-
 def refuse_precision(config: ConfigNode) -> None:
     """The port computes in float32 only: any other TPU.PRECISION raises."""
     if config.TPU.PRECISION != "float32":
@@ -115,17 +110,20 @@ class EpisodeWindow:
         return {k: float(np.mean([w[k] for w in self.window])) for k in (self.window[0] if self.window else {})}
 
 
-def eval_pass(collect, count: int, max_rollouts: int):
+def eval_pass(collect, count: int, max_rollouts: int, videos=None):
     """The exactly-once eval loop: ``collect()`` rollouts until ``count``
     distinct episode ids ended (or the budget ran out), each episode's
-    metrics at its done step counted once. Returns (per-metric lists,
-    sorted ids)."""
+    metrics at its done step counted once. ``videos`` (``eval_videos``'s
+    hook, or None) sees each rollout's (dones, masks, metrics) first.
+    Returns (per-metric lists, sorted ids)."""
     stats: Dict[str, list] = collections.defaultdict(list)
     seen: set = set()
     for _ in range(max_rollouts):
         if len(seen) >= count:
             break
         batch = collect()
+        if videos is not None:
+            videos(batch.dones, batch.masks, batch.metrics)
         dones = batch.dones.cpu().numpy()
         ep_ids = batch.metrics["episode"].cpu().numpy()
         metrics = {k: v.cpu().numpy() for k, v in batch.metrics.items() if k not in METRIC_BLACKLIST}
@@ -192,9 +190,7 @@ class BaseRLTrainer:
 
     def eval(self) -> None:
         """Evaluate a single checkpoint or every checkpoint of a folder, or
-        its last under USE_LAST_CKPT (base_trainer.py:69-123). Refuses a
-        non-empty VIDEO_OPTION before anything runs."""
-        refuse_videos(self.config)
+        its last under USE_LAST_CKPT (base_trainer.py:69-123)."""
         os.makedirs(self.config.TENSORBOARD_DIR, exist_ok=True)
         with TensorboardWriter(self.config.TENSORBOARD_DIR) as writer:
             ckpt_dir = self.config.EVAL_CKPT_PATH_DIR
@@ -260,10 +256,75 @@ class BaseRLTrainer:
     def generate_eval_videos(self, dones, masks, metrics, writer, checkpoint_index: int,
                              max_videos: int = 2) -> int:
         """Top-down-map episode videos at eval (generate_video semantics,
-        common/utils.py:187-238) are not ported yet: with VIDEO_OPTION set
-        this raises (``refuse_videos``), without it there is nothing to do."""
-        refuse_videos(self.config)
-        return 0
+        common/utils.py:187-238) for episodes fully inside the rollout, as
+        the JAX package writes them: host arrays (T, B) of dones, masks and
+        the agent-trace metrics recorded when VIDEO_OPTION is set
+        (EnvConfig.record_pose_info). Returns the number written."""
+        if "agent_node" not in metrics or not self.config.VIDEO_OPTION:
+            return 0
+        made = 0
+        for b in range(dones.shape[1]):
+            if made >= max_videos:
+                break
+            start = 0
+            for t in range(dones.shape[0]):
+                if masks[t, b] == 0:
+                    start = t
+                if dones[t, b]:
+                    tbl = self.env.scene_tables[int(metrics["agent_scene"][t, b])]
+                    edges = np.array(
+                        [[u, v] for u in range(tbl.num_nodes) for v in tbl.neighbors[u] if v >= 0],
+                        np.int32,
+                    )
+                    trail = [int(x) for x in metrics["agent_node"][start : t + 1, b]]
+                    # per-episode fog-of-war accumulator over the map image
+                    # (habitat fog_of_war.py reveal + overlay semantics)
+                    size = 256
+                    fog = np.zeros((size, size), np.uint8)
+                    px, _, _ = _to_px(tbl.positions, size)
+                    no_obstacles = np.zeros((size, size), bool)
+                    frames = []
+                    for i in range(len(trail)):
+                        rot = int(metrics["agent_rot"][start + i, b])
+                        yx = (int(px[trail[i]][1]), int(px[trail[i]][0]))
+                        fog = reveal_fog_of_war(no_obstacles, fog, yx, np.deg2rad(rot * 90), max_line_len=40)
+                        frames.append(draw_top_down_map(
+                            tbl.positions, edges, trail[i], rot, int(metrics["goal_node"][t, b]),
+                            trail=trail[: i + 1], size=size, fog=fog,
+                        ))
+                    generate_video(
+                        self.config.VIDEO_OPTION, self.config.VIDEO_DIR, frames,
+                        episode_id=f"{b}_{t}", checkpoint_idx=checkpoint_index,
+                        metrics={"spl": float(metrics["spl"][t, b]), "success": float(metrics["success"][t, b])},
+                        tb_writer=writer,
+                    )
+                    made += 1
+                    start = t + 1
+                    if made >= max_videos:
+                        break
+        return made
+
+    def eval_videos(self, writer, checkpoint_index: int, first_rollout_only: bool = False):
+        """The eval loops' video hook: called with each rollout's device
+        tensors (dones, masks, metrics), it copies what the videos need to
+        the host once and calls ``generate_eval_videos`` while fewer than 2
+        videos were made (a call may make 2 more, so an eval can make 3, as
+        in the JAX package), or on the first rollout only (AV-Nav). None
+        without VIDEO_OPTION, so such an eval copies nothing more."""
+        if not self.config.VIDEO_OPTION:
+            return None
+        made, calls = 0, 0
+
+        def hook(dones, masks, metrics) -> None:
+            nonlocal made, calls
+            calls += 1
+            if made >= 2 or (first_rollout_only and calls > 1):
+                return
+            host = {k: metrics[k].cpu().numpy() for k in VIDEO_METRICS if k in metrics}
+            made += self.generate_eval_videos(dones.cpu().numpy(), masks.cpu().numpy(), host,
+                                              writer, checkpoint_index)
+
+        return hook
 
     def percent_done(self) -> float:
         return self.num_updates_done / max(self.config.NUM_UPDATES, 1)

@@ -23,8 +23,8 @@ ss_baselines/savi/ddppo/algo/ddppo_trainer.py:62-1200):
   class-weighted CE over every step), checkpoints under ``vln/``, and an
   eval of π_l's accuracy and CE against the oracle.
 
-The JAX package's device mesh belongs to DD-PPO (ROADMAP item 8) and to the
-TPU; its chunked host-prefetch collect to item 9.
+The JAX package's device mesh belongs to DD-PPO (ROADMAP Queue 1 item 6)
+and to the TPU; its chunked host-prefetch collect to Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     eval_episode_accounting,
     exact_once_deal,
     refuse_precision,
-    refuse_videos,
 )
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 from avlen_tpu_torch.sim.builder import construct_batched_env
@@ -112,7 +111,9 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         # oracle instructions: the token bank (built on the host, moved to
         # the card once) or the host speaker per query
         t_bank = time.perf_counter()
-        bank, self.instr_source = resolve_instruction_source(cfg, self.env.scene_tables)
+        bank, self.instr_source = resolve_instruction_source(
+            cfg, self.env.scene_tables,
+            rgb_bank=self.env.bank.rgb if cfg.SPEAKER.USE_PANO_FEATURES else None, device=dev)
         self.instr_bank = torch.as_tensor(bank, device=dev) if bank is not None else None
         self.bank_seconds = time.perf_counter() - t_bank if bank is not None else 0.0
         self.bank_bytes = int(bank.nbytes) if bank is not None else 0
@@ -542,7 +543,6 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         ``eval_stats_ckpt{i}_{sound}.npz`` per episode in MODEL_DIR and the
         means under ``val/*``. A dialog config takes the dialog protocol
         (a ``vln/ckpt`` holds π_l only and must never load as π_q)."""
-        refuse_videos(self.config)
         if is_dialog_mode(self.config):
             return self._eval_checkpoint_dialog(checkpoint_path, writer, checkpoint_index)
         ckpt = self.load_checkpoint(checkpoint_path)
@@ -558,10 +558,13 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         seen: set = set()
         log_lines = []
         records = collections.defaultdict(list)
+        videos = self.eval_videos(writer, checkpoint_index)
         for _ in range(budget):
             if len(seen) >= count:
                 break
             carry, traj = self.collect(carry, deterministic=True, generator=gen, consts=consts)
+            if videos is not None:
+                videos(traj["dones"], traj["masks"], traj["metrics"])
             dones = traj["dones"].cpu().numpy()
             ep_ids = traj["metrics"]["episode"].cpu().numpy()
             metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}

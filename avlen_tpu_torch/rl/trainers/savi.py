@@ -43,7 +43,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     eval_pass,
     exact_once_deal,
     refuse_precision,
-    refuse_videos,
 )
 from avlen_tpu_torch.sim.builder import construct_batched_env
 from avlen_tpu_torch.utils import preemption
@@ -380,8 +379,8 @@ class SaviTrainer(BaseRLTrainer):
         (``eval_consts``), sampled actions as in the reference eval
         (ppo_trainer.py:1960), each episode id counted once until
         TEST_EPISODE_COUNT; the means go to ``val/*`` with
-        ``episodes_evaluated``. Eval videos are refused (``refuse_videos``)."""
-        refuse_videos(self.config)
+        ``episodes_evaluated``; with VIDEO_OPTION, up to 2 (or 3) episode
+        videos from the rollouts that end them (``eval_videos``)."""
         ckpt = self.load_checkpoint(checkpoint_path)
         self.reconfigure_from_checkpoint(ckpt)
         load_flax_params(self.policy, ckpt["state_dict"])
@@ -401,7 +400,8 @@ class SaviTrainer(BaseRLTrainer):
             return batch
 
         max_rollouts = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
-        stats, self._last_eval_episode_ids = eval_pass(collect, count, max_rollouts)
+        stats, self._last_eval_episode_ids = eval_pass(
+            collect, count, max_rollouts, self.eval_videos(writer, checkpoint_index))
         means = {k: float(np.mean(v)) for k, v in stats.items()}
         means.update(eval_episode_accounting(self._last_eval_episode_ids, count, "savi"))
         logger.info(f"savi eval ckpt {checkpoint_index}: " + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))

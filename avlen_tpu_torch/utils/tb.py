@@ -12,11 +12,16 @@ directly, as TensorBoard reads it:
 * a first record ``Event{wall_time, file_version: "brain.Event:2"}``;
 * then one ``Event{wall_time=1, step=2, summary=5{value=1{tag=1,
   simple_value=2}}}`` per scalar, protobuf-encoded by hand (proto3: a zero
-  step is left out).
+  step is left out);
+* and one ``Event{..., summary=5{value=1{tag=1, image=4{height=1, width=2,
+  colorspace=3, encoded_image_string=4}}}}`` per video, the animated GIF
+  of ``utils/video.gif_bytes`` in the image, as tensorboardX writes a
+  video (its summary.proto). tensorboardX needs moviepy to encode one; the
+  port needs no third-party package.
 
 Every record is flushed as it is written. ``read_scalars`` reads the
 scalars of every event file under a directory back (``run.py
---eval-best``). Videos are not ported yet (ROADMAP item 11).
+--eval-best``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import socket
 import struct
 import time
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 
 def _crc32c_table() -> List[int]:
@@ -87,6 +94,18 @@ def encode_event(wall_time: float, step: int = 0, file_version: Optional[str] = 
     return out
 
 
+def encode_image_event(wall_time: float, step: int, tag: str, height: int, width: int,
+                       channels: int, encoded: bytes) -> bytes:
+    """An ``Event`` whose summary holds one encoded image (a video's GIF)."""
+    out = struct.pack("<Bd", 1 << 3 | 1, wall_time)
+    if step:
+        out += _varint(2 << 3) + _varint(step)
+    image = b"".join(_varint(n << 3) + _varint(v) for n, v in ((1, height), (2, width), (3, channels)))
+    image += _field_bytes(4, encoded)
+    val = _field_bytes(1, tag.encode()) + _field_bytes(4, image)
+    return out + _field_bytes(5, _field_bytes(1, val))
+
+
 def frame_record(payload: bytes) -> bytes:
     header = struct.pack("<Q", len(payload))
     return (header + struct.pack("<I", masked_crc32c(header)) + payload
@@ -109,6 +128,10 @@ class EventFileWriter:
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
         self._write(encode_event(time.time(), int(step), tag=tag, value=float(value)))
+
+    def add_image(self, tag: str, step: int, height: int, width: int, channels: int,
+                  encoded: bytes) -> None:
+        self._write(encode_image_event(time.time(), int(step), tag, height, width, channels, encoded))
 
     def close(self) -> None:
         self._f.close()
@@ -149,7 +172,13 @@ class TensorboardWriter:
             self._scalars_writers[sub].add_scalar(tag, float(v), step)
 
     def add_video_from_np_images(self, tag: str, step: int, images, fps: int = 10) -> None:
-        raise NotImplementedError("eval videos are not ported yet (ROADMAP item 11)")
+        """(H, W, 3) uint8 frames as one video event (an animated GIF)."""
+        if not self.writer:
+            return
+        from avlen_tpu_torch.utils.video import gif_bytes
+
+        h, w, c = np.asarray(images[0]).shape
+        self.writer.add_image(tag, step, h, w, c, gif_bytes(images, fps))
 
 
 # ---------------------------------------------------------------------------

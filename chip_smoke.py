@@ -73,9 +73,12 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
    exactly the parameters and both Adam states of ``ckpt.1`` (max abs
    difference 0) and write ``ckpt.2``.
 9. ``eval``: ``--run-type eval`` of the folder's last checkpoint (split
-   ``train``, ``TEST_EPISODE_COUNT`` 32, no videos): 32 episodes, no id
-   twice, with success, SPL and seconds, read back from the run's event
-   files. Every kernel's launches over these two phases are counted from
+   ``train``, ``TEST_EPISODE_COUNT`` 32, the shipped VIDEO_OPTION): 32
+   episodes, no id twice, with success, SPL and seconds, read back from the
+   run's event files, and the episode videos it wrote: their names, bytes
+   and writer, the tensorboard video events and the host seconds of the
+   video hook (``video_report``; every eval below reports the same, and
+   fails if its rollouts ended episodes and it wrote no video). Every kernel's launches over these two phases are counted from
    zero; the phases fail unless every kernel ran in each and the SMT
    kernel ran at the PPO re-evaluation's 120 rows in the updates.
 
@@ -85,13 +88,20 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     spectrogram held against their plain versions; ms a step, examples/s,
     CE/MSE/acc at the first and last step, the checkpoint's bytes, its
     reload, and one launch of each audio kernel a step at 64 rows.
+10b. ``speaker_train``: recipe stage 4, ``train_speaker.main`` at its CLI's
+    widths (hidden 256, batch 64, vocabulary 79) for SPEAKER_STEPS steps:
+    ms a step, loss, token accuracy, the ``speaker.pth`` bytes, BLEU-4
+    against the template channel, the same weights on the card and the CPU
+    (teacher-forced logits within 1e-3, greedy and beam-4 words equal) and
+    the panorama encoder card against CPU.
 11. ``interactive``: the AVLEN trainer at full width on
     savi_interactive_1st_stage.yaml (6 envs, memory 150, d_model 256, CLIP
-    512 x 12 layers) with the template speaker (no speaker checkpoint
-    ships), π_g from train_loop's last checkpoint and the belief predictor
-    from belief_pretrain's: setup (bank build seconds and bytes apart) and
-    two collects of 150 steps; then savi_interactive_2nd_stage.yaml (full
-    memory, the host speaker per query) for one collect. Env-steps/s,
+    512 x 12 layers) with its shipped neural speaker (speaker_train's
+    checkpoint), π_g from train_loop's last checkpoint and the belief
+    predictor from belief_pretrain's: setup (the neural bank's build
+    seconds and bytes apart) and two collects of 150 steps; then
+    savi_interactive_2nd_stage.yaml (full memory, the neural speaker on the
+    host per query) for one collect. Env-steps/s,
     queries, dialog steps, the rl_mask share, CLIP tower calls and every
     kernel launch by shape: three SMT encodes a step at (6,151,288),
     (6,151,320) and (6,4,288), one irfft and one spectrogram. π_g must hold
@@ -108,8 +118,9 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     (8,4,288) and one at (24,4,288), 3 irfft and 3 spectrogram launches).
 14. ``interactive_train``: AVLEN's stage 1 (from train_loop's π_g,
     belief_pretrain's belief predictor and dialog_pretrain's π_l) → stage 2
-    (resumed exactly, REPLAY_STORE) → eval of the last checkpoint (24
-    episodes, the configured query strategy) → eval of the ``vln/ckpt``
+    (resumed exactly, REPLAY_STORE), both with the neural speaker → eval of
+    the last checkpoint (24 episodes, the configured query strategy, videos)
+    → eval of the ``vln/ckpt``
     (the dialog protocol's accuracy and CE), through ``run.main``; per
     update the collect, π_q's update (the SMT kernel's forwards, their
     plain recompute + backward, the rest) and π_l's update from CUDA
@@ -1260,7 +1271,9 @@ def run_train_loop(smi: str, root: str = TRAIN_DIR):
 
 
 def run_eval(smi: str, model_dir: str):
-    """``--run-type eval`` of the last checkpoint in ``model_dir``."""
+    """``--run-type eval`` of the last checkpoint in ``model_dir``, at the
+    shipped VIDEO_OPTION (disk + tensorboard): the episode videos it wrote
+    (``video_report``)."""
     import torch
 
     from avlen_tpu_torch import run
@@ -1269,21 +1282,23 @@ def run_eval(smi: str, model_dir: str):
     wrappers = _kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    tr = run.main(["--run-type", "eval", "--exp-config", SAVI_YAML, "--model-dir", model_dir,
-                   "USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
-                   "TEST_EPISODE_COUNT", str(EVAL_EPISODES)])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    with eval_videos_recorded() as rec:
+        t0 = time.perf_counter()
+        tr = run.main(["--run-type", "eval", "--exp-config", SAVI_YAML, "--model-dir", model_dir,
+                       "USE_LAST_CKPT", "True", "EVAL.SPLIT", "train", "TEST_EPISODE_COUNT", str(EVAL_EPISODES)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
     ids = tr._last_eval_episode_ids
     scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(model_dir, "tb")).items() if k.startswith("val/")}
     fields = dict(nvidia_smi=smi, seconds=seconds, setup_s=tr.setup_seconds, num_envs=tr.env.num_envs,
                   episodes=len(ids), distinct_ids=len(set(ids)), episodes_evaluated=scalars.get("val/episodes_evaluated"),
-                  success=scalars.get("val/success"), spl=scalars.get("val/spl"), launches=launches)
+                  success=scalars.get("val/success"), spl=scalars.get("val/spl"), launches=launches,
+                  videos=video_report(tr.config, rec))
     del tr
     torch.cuda.empty_cache()
     emit("eval", **fields)
+    check_videos("eval", fields["videos"])
     if fields["episodes"] != EVAL_EPISODES or fields["distinct_ids"] != EVAL_EPISODES:
         raise AssertionError(f"eval: {fields['episodes']} episodes ({fields['distinct_ids']} ids), want {EVAL_EPISODES}")
     if fields["episodes_evaluated"] != EVAL_EPISODES:
@@ -1293,6 +1308,214 @@ def run_eval(smi: str, model_dir: str):
     if not all(launches.values()):
         raise AssertionError(f"eval: a kernel never launched: {launches}")
     return launches
+
+
+@contextlib.contextmanager
+def eval_videos_recorded():
+    """Within the block, every eval's video hook (``BaseRLTrainer.
+    eval_videos``) is timed on the host clock, its copies to the host
+    included, and every ``generate_eval_videos`` call counted: the rollouts
+    it saw, those that ended an episode and the videos it made."""
+    import numpy as np
+
+    from avlen_tpu_torch.rl.trainers.base import BaseRLTrainer
+
+    rec = dict(seconds=0.0, rollouts=0, rollouts_with_dones=0, made=0)
+    hook_of, generate = BaseRLTrainer.eval_videos, BaseRLTrainer.generate_eval_videos
+
+    def eval_videos(self, *args, **kwargs):
+        hook = hook_of(self, *args, **kwargs)
+        if hook is None:
+            return None
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            hook(*a)
+            rec["seconds"] += time.perf_counter() - t0
+
+        return timed
+
+    def counted(self, dones, *args, **kwargs):
+        made = generate(self, dones, *args, **kwargs)
+        rec["rollouts"] += 1
+        rec["rollouts_with_dones"] += bool(np.asarray(dones).any())
+        rec["made"] += made
+        return made
+
+    BaseRLTrainer.eval_videos, BaseRLTrainer.generate_eval_videos = eval_videos, counted
+    try:
+        yield rec
+    finally:
+        BaseRLTrainer.eval_videos, BaseRLTrainer.generate_eval_videos = hook_of, generate
+
+
+def video_events(log_dir: str) -> int:
+    """Video (image) summaries in the event files directly in ``log_dir``."""
+    from avlen_tpu_torch.utils import tb
+
+    n = 0
+    for name in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []:
+        if "tfevents" not in name:
+            continue
+        for payload in tb.read_records(os.path.join(log_dir, name)):
+            for number, _, summary in tb._fields(payload):
+                if number == 5:
+                    n += sum(1 for v_num, _, value in tb._fields(summary) if v_num == 1
+                             for f, _, _ in tb._fields(value) if f == 4)
+    return n
+
+
+def video_report(config, rec: dict) -> dict:
+    """The videos an eval wrote under ``config.VIDEO_DIR`` (names, bytes,
+    the writer: the port's GIF writer for .gif, imageio for .mp4), the
+    video events in its TENSORBOARD_DIR and the host seconds of the hook."""
+    vdir = config.VIDEO_DIR
+    names = sorted(os.listdir(vdir)) if os.path.isdir(vdir) else []
+    videos = []
+    for n in names:
+        with open(os.path.join(vdir, n), "rb") as f:
+            head = f.read(6)
+        videos.append(dict(name=n, bytes=os.path.getsize(os.path.join(vdir, n)),
+                           writer="gif" if n.endswith(".gif") else "imageio", gif89a=head == b"GIF89a"))
+    return dict(video_option=list(config.VIDEO_OPTION), videos=videos, tb_video_events=video_events(
+        config.TENSORBOARD_DIR), host_s=rec["seconds"], rollouts_seen=rec["rollouts"],
+        rollouts_with_dones=rec["rollouts_with_dones"], made=rec["made"])
+
+
+def check_videos(phase: str, rep: dict) -> None:
+    """An eval whose video rule saw a rollout end an episode must have
+    written videos, one file and one event each, GIFs whole."""
+    if rep["rollouts_with_dones"] and not rep["made"]:
+        raise AssertionError(f"{phase}: rollouts ended episodes but no video was written: {rep}")
+    if len(rep["videos"]) != rep["made"] or rep["tb_video_events"] != rep["made"]:
+        raise AssertionError(f"{phase}: {rep['made']} videos made, {len(rep['videos'])} files, "
+                             f"{rep['tb_video_events']} events")
+    if not all(v["gif89a"] for v in rep["videos"] if v["writer"] == "gif"):
+        raise AssertionError(f"{phase}: a GIF without its header: {rep['videos']}")
+
+
+SPEAKER_DIR = "build/chip_smoke_speaker"  # speaker.pth of the speaker_train phase
+# train_speaker's CLI default is 2,000 steps; its widths (hidden 256, batch
+# 64, 2 grid scenes of side 8, vocabulary 79) are kept, only the steps cut
+SPEAKER_STEPS = 300
+SPEAKER_BLEU_PATHS = 256
+# teacher-forced logits of one set of weights on the card and on the CPU (f32,
+# TF32 off; 39 decoder steps at hidden 256, logits O(10)); the pano features
+# through GN ResNet-18 (cuDNN f32 against the CPU's convolutions)
+SPEAKER_LOGITS_TOL, PANO_FEATURES_TOL = 1e-3, 1e-4
+
+
+def check_speaker_devices(ckpt: str, dev, tables, n: int = 64) -> dict:
+    """One ``speaker.pth`` served on the card and on the CPU: teacher-forced
+    logits on a fixed batch of ``n`` pairs (max abs difference), greedy and
+    beam-4 word ids (equal), and the card's time to decode a bank build's
+    batch of 512 paths greedily."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.dialog.instruction_bank import SPEAKER_BATCH
+    from avlen_tpu_torch.dialog.instruction_source import speaker_from_config
+    from avlen_tpu_torch.dialog.speaker.train_speaker import build_dataset
+
+    cfg = get_config(INTERACTIVE_STAGE1, opts=["SPEAKER.CKPT_PATH", ckpt])
+    card = speaker_from_config(cfg, tables, device=dev)
+    cpu = speaker_from_config(cfg, tables, device="cpu")
+    acts, feats, lens, words = build_dataset(tables, card.vocab, max(n, SPEAKER_BATCH), seed=7)
+    batch = (acts[:n], feats[:n], lens[:n])
+    with torch.no_grad():
+        got = card.model.teacher_logits(*(torch.as_tensor(x).to(dev) for x in batch),
+                                        torch.as_tensor(words[:n, :-1]).to(dev)).cpu()
+        want = cpu.model.teacher_logits(*(torch.as_tensor(x) for x in batch), torch.as_tensor(words[:n, :-1]))
+    out = dict(logits_max_abs_err=float((got - want).abs().max()), logits_peak=float(want.abs().max()),
+               logits_tol=SPEAKER_LOGITS_TOL)
+    for name, beam in (("greedy", 1), ("beam4", 4)):
+        card.beam_size = cpu.beam_size = beam
+        ids_card, ids_cpu = card.decode(*batch), cpu.decode(*batch)
+        out[f"{name}_equal"] = bool(np.array_equal(ids_card, ids_cpu))
+        out[f"{name}_tokens_differing"] = int((ids_card != ids_cpu).sum())
+    card.beam_size = 1
+    big = (acts[:SPEAKER_BATCH], feats[:SPEAKER_BATCH], lens[:SPEAKER_BATCH])
+    card.decode(*big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        card.decode(*big)
+    out["decode_ms_per_512"] = (time.perf_counter() - t0) / 3 * 1e3
+    return out
+
+
+def run_speaker_train(dev, smi: str, root: str = SPEAKER_DIR) -> str:
+    """Recipe stage 4: ``train_speaker.main`` on the card at its CLI's widths
+    (hidden 256, batch 64, 2 grid scenes of side 8, vocabulary 79) for
+    SPEAKER_STEPS steps, writing ``speaker.pth`` under ``root``: ms a step
+    (the first apart), the final loss and token accuracy, the checkpoint's
+    bytes; BLEU-4 of the card's greedy decodes against the template channel
+    on SPEAKER_BLEU_PATHS freshly drawn shortest paths
+    (``evaluate_neural_vs_template``, seed 1); the same weights on the card
+    and on the CPU (``check_speaker_devices``); and the panorama encoder on
+    a frame bank of 2 scenes x 16 nodes x 4 headings of 64 px, card against
+    CPU with the same weights. Fails unless the loss is finite, the logits
+    agree within SPEAKER_LOGITS_TOL, the greedy and beam-4 words are equal
+    and the features agree within PANO_FEATURES_TOL. Returns the
+    checkpoint's path."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.dialog.instruction_source import speaker_from_config
+    from avlen_tpu_torch.dialog.speaker import train_speaker
+    from avlen_tpu_torch.dialog.speaker.eval_speaker import evaluate_neural_vs_template
+    from avlen_tpu_torch.dialog.speaker.pano_features import PanoramaEncoder, precompute_panorama_features
+    from avlen_tpu_torch.dialog.speaker.speaker import Speaker
+    from avlen_tpu_torch.sim.graph import build_scene_tables
+    from avlen_tpu_torch.sim.synthetic import make_grid_scene
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    stats = train_speaker.main(["--output", root, "--steps", str(SPEAKER_STEPS)])
+    seconds = time.perf_counter() - t0
+    ckpt = stats["checkpoint"]
+    rng = np.random.RandomState(0)  # the CLI's world
+    tables = [build_scene_tables(make_grid_scene(rng, side=8)) for _ in range(2)]
+    neural = speaker_from_config(get_config(INTERACTIVE_STAGE1, opts=["SPEAKER.CKPT_PATH", ckpt]), tables,
+                                 device=dev)
+    t0 = time.perf_counter()
+    bleu = evaluate_neural_vs_template(neural, Speaker([t.positions for t in tables], backend="template"), tables,
+                                       num_paths=SPEAKER_BLEU_PATHS, seed=1)
+    bleu_s = time.perf_counter() - t0
+    devices = check_speaker_devices(ckpt, dev, tables)
+
+    encoder = PanoramaEncoder(3, generator=torch.Generator().manual_seed(0))
+    frames = np.random.RandomState(1).randint(0, 256, (2, 16, 4, 64, 64, 3), np.uint8)
+    t0 = time.perf_counter()
+    on_card = precompute_panorama_features(frames, copy.deepcopy(encoder), batch=64, device=dev)
+    pano_s = time.perf_counter() - t0
+    on_cpu = precompute_panorama_features(frames, encoder, batch=64, device="cpu")
+    pano_err = float(np.abs(on_card - on_cpu).max())
+
+    steps = stats["steps"]
+    fields = dict(
+        nvidia_smi=smi, cli_steps_default=2000, steps=steps, batch=stats["batch"], hidden=neural.model.hidden_size,
+        vocab=len(neural.vocab), num_pairs=stats["num_pairs"], seconds=seconds,
+        first_step_ms=stats["first_step_seconds"] * 1e3,
+        ms_per_step=(stats["loop_seconds"] - stats["first_step_seconds"]) / max(steps - 1, 1) * 1e3,
+        loss=stats["loss"], token_acc=stats["acc"], checkpoint=os.path.relpath(ckpt),
+        checkpoint_bytes=stats["checkpoint_bytes"], bleu=bleu, bleu_s=bleu_s, card_vs_cpu=devices,
+        pano=dict(frames=list(frames.shape), card_s=pano_s, max_abs_err=pano_err,
+                  peak=float(np.abs(on_cpu).max()), tol=PANO_FEATURES_TOL))
+    emit("speaker_train", **fields)
+    if not (math.isfinite(fields["loss"]) and 0 <= fields["token_acc"] <= 1 and os.path.isfile(ckpt)):
+        raise AssertionError(f"speaker_train: loss {fields['loss']}, acc {fields['token_acc']}, {ckpt}")
+    if not devices["logits_max_abs_err"] <= SPEAKER_LOGITS_TOL or not (devices["greedy_equal"]
+                                                                      and devices["beam4_equal"]):
+        raise AssertionError(f"speaker_train: card and CPU differ: {devices}")
+    if not pano_err <= PANO_FEATURES_TOL:
+        raise AssertionError(f"speaker_train: pano features differ by {pano_err}")
+    return ckpt
 
 INTERACTIVE_STAGE1 = "configs/semantic_audionav/savi/savi_interactive_1st_stage.yaml"
 INTERACTIVE_STAGE2 = "configs/semantic_audionav/savi/savi_interactive_2nd_stage.yaml"
@@ -1564,17 +1787,19 @@ def _traj_summary(traj, seconds: float):
         finite=finite)
 
 
-def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str):
+def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str):
     """AVLEN at full width: ``InteractiveDDPPOTrainer`` on
     savi_interactive_1st_stage.yaml (6 envs, memory 150 in SMT pretraining
     mode, d_model 256, CLIP width 512 with 12 layers, 16 kHz, 16,000-tap
-    RIRs) with the template speaker, the train_loop phase's last SAVi
-    checkpoint as π_g and belief_pretrain's checkpoint as the belief
-    predictor, the oracle instructions banked (BANK_MODE bank: the world's
-    ~89-node scenes are over MAX_BANK_NODES, where auto would call the host
-    speaker): setup and two collects of 150 steps. Then a fresh trainer on
-    savi_interactive_2nd_stage.yaml (full memory history, BANK_MODE auto:
-    the host speaker per query) for one collect. Every kernel's launches are
+    RIRs) with its shipped neural speaker (speaker_train's ``speaker.pth``
+    at SPEAKER.CKPT_PATH), the train_loop phase's last SAVi checkpoint as
+    π_g and belief_pretrain's checkpoint as the belief predictor, the
+    oracle instructions banked (BANK_MODE bank: the world's ~89-node scenes
+    are over MAX_BANK_NODES, where auto would call the host speaker; the
+    bank is ~63k greedy decodes): setup and two collects of 150 steps. Then
+    a fresh trainer on savi_interactive_2nd_stage.yaml (full memory
+    history, BANK_MODE auto: the neural speaker on the host per query) for
+    one collect. Every kernel's launches are
     counted from zero over each of the two runs, setup included. Fails
     unless π_g and the belief predictor hold their checkpoints exactly, the
     outputs are finite, and per step the SMT kernel ran once at each of
@@ -1587,7 +1812,7 @@ def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str):
     from avlen_tpu_torch.utils.checkpoint import load_checkpoint
     from avlen_tpu_torch.utils.flax_bridge import to_flax_params
 
-    common = ["SPEAKER.BACKEND", "template", "GOAL_CKPT_PATH", goal_ckpt,
+    common = ["SPEAKER.CKPT_PATH", speaker_ckpt, "GOAL_CKPT_PATH", goal_ckpt,
               "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt]
     want_goal, want_belief = (load_checkpoint(p)["state_dict"] for p in (goal_ckpt, belief_ckpt))
     wrappers = _kernel_wrappers()
@@ -1619,6 +1844,7 @@ def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str):
             pretraining=bool(smt_cfg.pretraining), clip_width=cfg.RL.PPO.CLIP_WIDTH,
             clip_layers=cfg.RL.PPO.CLIP_LAYERS, rir_length=tr.env.bank.rir.length, fft_len=tr.env.bank.rir.fft_len,
             max_nodes=tr.env.bank.max_nodes, setup_s=tr.setup_seconds, setup_wall_s=setup_s,
+            speaker=cfg.SPEAKER.BACKEND, speaker_served=None if source is None else source.speaker.backend,
             instructions="bank" if source is None else "host speaker", bank_build_s=tr.bank_seconds,
             bank_bytes=tr.bank_bytes, host_speaker_calls=getattr(source, "host_calls", None),
             loaded=sorted(tr.loaded), goal_max_abs_diff=_max_tree_diff(to_flax_params(tr.goal_policy), want_goal),
@@ -1649,13 +1875,19 @@ def run_interactive(dev, smi: str, goal_ckpt: str, belief_ckpt: str):
                 raise AssertionError(f"interactive {stage}: non-finite outputs {r['finite']}")
     if runs["stage1"]["bank_bytes"] == 0 or runs["stage2"]["instructions"] != "host speaker":
         raise AssertionError("interactive: stage 1 must bank the instructions and stage 2 call the host speaker")
+    if any(r["speaker"] != "neural" for r in runs.values()) or runs["stage2"]["speaker_served"] != "neural":
+        raise AssertionError(f"interactive: the shipped neural speaker did not serve: {runs}")
     return all_launches
 
 
 def interactive_tiny_opts():
     """savi_interactive_2nd_stage.yaml on a tiny world (3 envs, memory 8,
     d_model 32, 4 heads, CLIP width 64 with 2 layers, 8 kHz, 2,000-tap RIRs),
-    the template speaker, π_l acting when queried."""
+    π_l acting when queried, and the template speaker: these references
+    hold the policies' arithmetic on the card against the CPU, so both runs
+    must be served the same instruction tokens, which the template's are by
+    construction; the neural speaker's own card-against-CPU agreement is
+    the speaker_train phase's."""
     return ["TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "4", "TASK_CONFIG.DATASET.SYNTHETIC.NUM_EPISODES", "20",
             "TASK_CONFIG.DATASET.SYNTHETIC.RIR_LENGTH", "2000", "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "32",
             "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", "8000",
@@ -1878,7 +2110,8 @@ class ShapeTimers:
         return {s: v for s, v in out.items() if v[0]}
 
 
-def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: str, root: str = AVLEN_DIR):
+def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: str, speaker_ckpt: str,
+                          root: str = AVLEN_DIR):
     """AVLEN training at full width through ``run.main``, under ``root``:
     stage 1 (savi_interactive_1st_stage.yaml, 6 envs, 150 steps, memory 150,
     the oracle instructions banked) from π_g of the train_loop phase, the
@@ -1916,7 +2149,7 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
     root = os.path.abspath(root)
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "data")
-    opts = ["SPEAKER.BACKEND", "template", "GOAL_CKPT_PATH", goal_ckpt, "VLN_CKPT_PATH", vln_ckpt,
+    opts = ["SPEAKER.CKPT_PATH", speaker_ckpt, "GOAL_CKPT_PATH", goal_ckpt, "VLN_CKPT_PATH", vln_ckpt,
             "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt]
     train_opts = opts + ["NUM_UPDATES", str(AVLEN_UPDATES), "CHECKPOINT_INTERVAL", "1"]
     want_vln = load_checkpoint(vln_ckpt)["state_dict"]
@@ -2012,11 +2245,12 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
         fields["rounds"] = rounds
         fields["resume_max_abs_diff"] = resume
 
-        t0 = time.perf_counter()
-        ev = run.main(["--run-type", "eval", "--exp-config", INTERACTIVE_STAGE2, "--model-dir", root, *opts,
-                       "USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
-                       "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
-        torch.cuda.synchronize()
+        with eval_videos_recorded() as rec:
+            t0 = time.perf_counter()
+            ev = run.main(["--run-type", "eval", "--exp-config", INTERACTIVE_STAGE2, "--model-dir", root, *opts,
+                           "USE_LAST_CKPT", "True", "EVAL.SPLIT", "train",
+                           "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
+            torch.cuda.synchronize()
         ids = ev._last_eval_episode_ids
         sound = ev.config.SOUND_TYPE
         index = len(list_checkpoints(data)) - 1
@@ -2028,24 +2262,26 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
             how_many_query=ev.config.HOW_MANY_QUERY, max_queries=float(queries.max(initial=0)),
             mean_queries=float(queries.mean()) if queries.size else None,
             success=scalars.get("val/success"), spl=scalars.get("val/spl"),
-            episodes_evaluated=scalars.get("val/episodes_evaluated"))
+            episodes_evaluated=scalars.get("val/episodes_evaluated"), videos=video_report(ev.config, rec))
         how_many = ev.config.HOW_MANY_QUERY
         del ev
         torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
         dev_dir = os.path.join(root, "dialog_eval")
-        dv = run.main(["--run-type", "eval", "--exp-config", DIALOG_YAML, "--model-dir", dev_dir,
-                       "EVAL_CKPT_PATH_DIR", vln_ckpt, "VIDEO_OPTION", "[]", "EVAL.SPLIT", "test",
-                       "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
-        torch.cuda.synchronize()
+        with eval_videos_recorded() as rec:
+            t0 = time.perf_counter()
+            dv = run.main(["--run-type", "eval", "--exp-config", DIALOG_YAML, "--model-dir", dev_dir,
+                           "EVAL_CKPT_PATH_DIR", vln_ckpt, "EVAL.SPLIT", "test",
+                           "TEST_EPISODE_COUNT", str(AVLEN_EVAL_EPISODES)])
+            torch.cuda.synchronize()
         ids = dv._last_eval_episode_ids
         scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(dev_dir, "tb")).items()}
         fields["dialog_eval"] = dict(
             seconds=time.perf_counter() - t0, num_envs=dv.env.num_envs, episodes=len(ids), distinct_ids=len(set(ids)),
             action_accuracy=scalars.get("val_dialog/action_accuracy"), action_ce=scalars.get("val_dialog/action_ce"),
             success=scalars.get("val_dialog/success"),
-            pi_l_max_abs_diff_to_vln=_max_tree_diff(to_flax_params(dv.dialog_policy), want_vln))
+            pi_l_max_abs_diff_to_vln=_max_tree_diff(to_flax_params(dv.dialog_policy), want_vln),
+            videos=video_report(dv.config, rec))
         del dv
         torch.cuda.empty_cache()
     launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -2085,6 +2321,10 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
     d = fields["dialog_eval"]
     if not (0 <= d["action_accuracy"] <= 1 and math.isfinite(d["action_ce"])) or d["pi_l_max_abs_diff_to_vln"]:
         raise AssertionError(f"interactive_train dialog_eval: {d}")
+    check_videos("interactive_train eval", fields["eval"]["videos"])
+    # π_l's dialog protocol writes no videos, as in the JAX package
+    if fields["dialog_eval"]["videos"]["videos"]:
+        raise AssertionError(f"interactive_train dialog_eval: videos {fields['dialog_eval']['videos']}")
     if not all(launches.values()):
         raise AssertionError(f"interactive_train: a kernel never launched: {launches}")
     if fields["unchecked_shapes"]:
@@ -2561,10 +2801,11 @@ def run_baseline_train(stack: str, smi: str, root: str = BASELINE_DIR):
 
         cls.eval_rollout_budget = bounded
         try:
-            t0 = time.perf_counter()
-            tr = main("USE_LAST_CKPT", "True", "VIDEO_OPTION", "[]", "EVAL.SPLIT", "train",
-                      "TEST_EPISODE_COUNT", str(count), run_type="eval")
-            torch.cuda.synchronize()
+            with eval_videos_recorded() as rec:
+                t0 = time.perf_counter()
+                tr = main("USE_LAST_CKPT", "True", "EVAL.SPLIT", "train", "TEST_EPISODE_COUNT", str(count),
+                          run_type="eval")
+                torch.cuda.synchronize()
         finally:
             cls.eval_rollout_budget = own_budget
         ids = tr._last_eval_episode_ids
@@ -2573,7 +2814,7 @@ def run_baseline_train(stack: str, smi: str, root: str = BASELINE_DIR):
                               distinct_ids=len(set(ids)), episodes_evaluated=scalars.get("val/episodes_evaluated"),
                               success=scalars.get("val/success"), spl=scalars.get("val/spl"),
                               deterministic=tr.eval_deterministic, rollout_budget=budget,
-                              trainer_rollout_budget=budgets[-1])
+                              trainer_rollout_budget=budgets[-1], videos=video_report(tr.config, rec))
         if stack == "avwan":
             fields["eval"]["low_level_steps_taken"] = int(tr.env.low_level_steps)
         del tr
@@ -2602,6 +2843,7 @@ def run_baseline_train(stack: str, smi: str, root: str = BASELINE_DIR):
     ev = fields["eval"]
     if ev["distinct_ids"] != ev["episodes"] or ev["episodes_evaluated"] != ev["episodes"]:
         raise AssertionError(f"{stack}_train: eval counted {ev}")
+    check_videos(f"{stack}_train eval", ev["videos"])
     if stack == "avnav" and ev["episodes"] != count:
         raise AssertionError(f"{stack}_train: eval finished {ev['episodes']} episodes, want {count}")
     for part in ("train", "resume"):
@@ -2635,19 +2877,22 @@ def run_avwan_episodes(smi: str, root: str = BASELINE_DIR):
 
     def main(run_type, *args):
         return run.main(["--run-type", run_type, "--exp-config", AVWAN_YAML, "--model-dir", model_dir,
-                         *args, *opts, "VIDEO_OPTION", "[]"])
+                         *args, *opts])
 
     def evaluate(*device):
-        t0 = time.perf_counter()
-        tr = main("eval", *device, "USE_LAST_CKPT", "True", "EVAL.SPLIT", "train",
-                  "TEST_EPISODE_COUNT", str(AVWAN_EPISODES))
-        seconds = time.perf_counter() - t0
+        with eval_videos_recorded() as rec:
+            t0 = time.perf_counter()
+            tr = main("eval", *device, "USE_LAST_CKPT", "True", "EVAL.SPLIT", "train",
+                      "TEST_EPISODE_COUNT", str(AVWAN_EPISODES))
+            seconds = time.perf_counter() - t0
         tb = os.path.join(model_dir, "tb")
         means = {k: v[-1][1] for k, v in read_scalars(tb).items() if k.startswith("val/")}
+        videos = video_report(tr.config, rec)
         shutil.rmtree(tb)
+        shutil.rmtree(tr.config.VIDEO_DIR, ignore_errors=True)
         return dict(seconds=seconds, ids=list(tr._last_eval_episode_ids), means=means,
                     low_level_steps=int(tr.env.low_level_steps), num_envs=tr.env.num_envs,
-                    deterministic=tr.eval_deterministic)
+                    deterministic=tr.eval_deterministic, videos=videos)
 
     main("train", "NUM_UPDATES", "1")
     for fn in wrappers.values():
@@ -2667,6 +2912,10 @@ def run_avwan_episodes(smi: str, root: str = BASELINE_DIR):
                              f"episodes_evaluated {got['means'].get('val/episodes_evaluated')}")
     if ids != ref["ids"] or set(got["means"]) != set(ref["means"]) or not means_err <= 1e-5:
         raise AssertionError(f"avwan_episodes: the card's eval differs from the CPU's: {got} vs {ref}")
+    check_videos("avwan_episodes", got["videos"])
+    names = [[v["name"] for v in r["videos"]["videos"]] for r in (got, ref)]
+    if not names[0] or names[0] != names[1]:
+        raise AssertionError(f"avwan_episodes: the card's videos {names[0]}, the CPU's {names[1]}")
     # one launch of each audio kernel renders a low-level step of all envs
     steps = -(-got["low_level_steps"] // got["num_envs"])
     if not got["deterministic"] or any(launches[k] < steps for k in ("partial_irfft", "spectrogram")):
@@ -2719,9 +2968,10 @@ def main() -> int:
     from avlen_tpu_torch.utils.checkpoint import list_checkpoints
 
     goal_ckpt = list_checkpoints(os.path.join(model_dir, "data"))[-1]
-    interactive_launches = run_interactive(dev, smi, goal_ckpt, belief_ckpt)
+    speaker_ckpt = run_speaker_train(dev, smi)
+    interactive_launches = run_interactive(dev, smi, goal_ckpt, belief_ckpt, speaker_ckpt)
     dialog_launches, vln_ckpt = run_dialog_pretrain(smi)
-    avlen_launches = run_interactive_train(smi, goal_ckpt, belief_ckpt, vln_ckpt)
+    avlen_launches = run_interactive_train(smi, goal_ckpt, belief_ckpt, vln_ckpt, speaker_ckpt)
     check_interactive_reference(dev)
     check_interactive_update_reference(dev)
     check_baseline_reference(dev, "avnav")

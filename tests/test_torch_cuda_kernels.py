@@ -613,3 +613,48 @@ def test_avwan_eval_ends_episodes_on_the_card(dev, tmp_path):
 
     fields = chip_smoke.run_avwan_episodes("", root=str(tmp_path))
     assert fields["card"]["ids"] == fields["cpu"]["ids"] and len(fields["card"]["ids"]) == 5
+    assert fields["card"]["videos"]["videos"] and fields["card"]["videos"]["tb_video_events"] > 0
+
+
+def test_speaker_decodes_on_the_card_as_on_the_cpu(dev, tmp_path):
+    """A speaker trained a few steps on the card at its CLI's widths
+    (hidden 256): the same ``speaker.pth`` served on the card and on the
+    CPU gives teacher-forced logits within chip_smoke's SPEAKER_LOGITS_TOL
+    and the same greedy and beam-4 words."""
+    import chip_smoke
+    from avlen_tpu_torch.dialog.speaker.train_speaker import train_speaker
+    from avlen_tpu_torch.sim.graph import build_scene_tables
+    from avlen_tpu_torch.sim.synthetic import make_grid_scene
+
+    rng = np.random.RandomState(0)
+    tables = [build_scene_tables(make_grid_scene(rng, side=8)) for _ in range(2)]
+    train_speaker(tables, num_steps=20, checkpoint_dir=str(tmp_path), device=dev)
+    out = chip_smoke.check_speaker_devices(str(tmp_path / "speaker.pth"), dev, tables)
+    assert out["logits_max_abs_err"] <= chip_smoke.SPEAKER_LOGITS_TOL, out
+    assert out["greedy_equal"] and out["beam4_equal"], out
+
+
+def test_gif_writer_round_trips_on_the_card_machine(dev, tmp_path):
+    """Top-down maps of a fogged walk, written by the port's GIF writer as
+    an eval writes them, decode back exactly through PIL."""
+    import io
+
+    from PIL import Image
+
+    from avlen_tpu_torch.utils import maps, video
+
+    rng = np.random.RandomState(3)
+    pos = rng.rand(12, 3).astype(np.float32) * 8
+    edges = np.array([[i, i + 1] for i in range(11)], np.int32)
+    fog = np.zeros((256, 256), np.uint8)
+    frames = []
+    for i in range(12):
+        fog = maps.reveal_fog_of_war(np.zeros((256, 256), bool), fog, (20 * i, 128), 0.5 * i, max_line_len=40)
+        frames.append(maps.draw_top_down_map(pos, edges, i, i % 4, 11, trail=list(range(i + 1)), fog=fog))
+    path = video.images_to_video(str(tmp_path / "episode=0_11-ckpt=0.mp4"), frames)
+    assert path.endswith(".gif")
+    im = Image.open(path)
+    assert im.n_frames == len(frames)
+    for i, f in enumerate(frames):
+        im.seek(i)
+        np.testing.assert_array_equal(np.asarray(im.convert("RGB")), f)

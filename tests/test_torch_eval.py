@@ -5,8 +5,8 @@ the episode-stream refresh and ``resolve_eval_config`` give JAX's values;
 ``reset`` and ``step`` under the remapped tables deal remapped episodes;
 ``_eval_checkpoint`` counts every episode once; a forced tiny rollout
 budget warns and records ``episodes_evaluated`` (as
-tests/test_verdict_r4.py:52); ``refresh_ep_order`` leaves the in-flight
-episode alone; and a non-empty ``VIDEO_OPTION`` raises."""
+tests/test_verdict_r4.py:52); and ``refresh_ep_order`` leaves the in-flight
+episode alone. Eval videos are held in tests/test_torch_video.py."""
 
 import logging
 import os
@@ -177,15 +177,3 @@ def test_eval_tiny_budget_warns_and_records(eval_trainer):
     assert "episodes_evaluated" in means
     assert means["episodes_evaluated"] < tr.config.TEST_EPISODE_COUNT
     assert any("episodes" in m and "completed" in m for m in records), records
-
-
-def test_video_option_raises(tmp_path):
-    cfg = get_config(SAVI, opts=OPTS + ["VIDEO_OPTION", "['disk']"], model_dir=str(tmp_path))
-    tr = SaviTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="VIDEO_OPTION"):
-        tr.eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tr.generate_eval_videos(None, None, {}, None, 0)
-    with pytest.raises(NotImplementedError, match="VIDEO_OPTION"):
-        tr._eval_checkpoint("ckpt.0.pth", None, 0)
-    assert not tr._setup_done  # refused before anything was built

@@ -3,9 +3,9 @@ JAX package on a tiny world: the template speaker's text string for string,
 ``path_features`` array for array, the token bank int for int (and the
 host speaker's rows equal to it), ``sub_instr_token_bank``, and the config
 rules of ``resolve_instruction_source``: auto banks up to MAX_BANK_NODES
-and calls the host speaker above; the neural speaker, the panorama
-features and the ``cached`` mode raise NotImplementedError naming their
-ROADMAP items."""
+and calls the host speaker above; an untrained neural speaker and the
+panorama features resolve; the ``cached`` mode raises NotImplementedError
+naming its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -99,21 +99,27 @@ def test_sub_instr_token_bank_matches_jax():
     (["SPEAKER.BANK_MODE", "auto", "SPEAKER.MAX_BANK_NODES", "8"], "callback"),
     (["SPEAKER.BANK_MODE", "callback"], "callback"),
     (["SPEAKER.BANK_MODE", "bank", "SPEAKER.MAX_BANK_NODES", "8"], "bank"),
-    (["SPEAKER.BANK_MODE", "cached"], "ROADMAP item 9"),
-    (["SPEAKER.BACKEND", "neural"], "ROADMAP item 6"),
-    (["SPEAKER.USE_PANO_FEATURES", "True"], "ROADMAP item 6"),
+    (["SPEAKER.BANK_MODE", "cached"], "ROADMAP Queue 1 item 4"),
+    # an untrained neural speaker (no CKPT_PATH), served per query
+    (["SPEAKER.BACKEND", "neural", "SPEAKER.CKPT_PATH", "", "SPEAKER.BANK_MODE", "callback"], "callback"),
+    # panorama features of a frame bank under the template channel
+    (["SPEAKER.USE_PANO_FEATURES", "True"], "bank"),
 ])
 def test_resolve_instruction_source(worlds, opts, want):
     _, tables = worlds
     cfg = get_config(CFG, opts=["SPEAKER.BACKEND", "template"] + opts)
     if want.startswith("ROADMAP"):
         with pytest.raises(NotImplementedError, match=want):
-            instruction_source.resolve_instruction_source(cfg, tables)
+            instruction_source.resolve_instruction_source(cfg, tables, device="cpu")
         return
-    bank, source = instruction_source.resolve_instruction_source(cfg, tables)
+    rgb = None
+    if cfg.SPEAKER.USE_PANO_FEATURES:
+        n = max(t.num_nodes for t in tables)
+        rgb = np.random.RandomState(0).randint(0, 256, (len(tables), n, 4, 16, 16, 3), np.uint8)
+    bank, source = instruction_source.resolve_instruction_source(cfg, tables, rgb_bank=rgb, device="cpu")
     assert (bank is not None, source is not None) == (want == "bank", want == "callback")
-
-
-def test_neural_speaker_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        Speaker([np.zeros((2, 3), np.float32)], backend="neural")
+    speaker = source.speaker if source is not None else None
+    if cfg.SPEAKER.BACKEND == "neural":
+        assert speaker.backend == "neural" and speaker.model is not None
+        words = speaker.generate_instr([{"heading": 0, "scene": 0, "path": [0, 1, 2]}])[0]["words"]
+        assert isinstance(words, list)

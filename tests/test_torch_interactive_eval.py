@@ -4,9 +4,11 @@ savi_interactive_2nd_stage.yaml: a checkpoint that a set-up trainer writes
 is evaluated with the configured query strategy (here ``uniform`` with a
 budget of one query an episode) over the train split; each episode is
 counted once, the means go to ``val/*`` and each episode to
-``test_log_ckpt0_{sound}.txt`` and ``eval_stats_ckpt0_{sound}.npz``; with
-VIDEO_OPTION set the eval refuses to start (videos are not ported)."""
+``test_log_ckpt0_{sound}.txt`` and ``eval_stats_ckpt0_{sound}.npz``; at
+the default VIDEO_OPTION the eval writes 2-3 episode videos (GIFs) under
+MODEL_DIR/video_dir."""
 
+import os
 import shutil
 
 import numpy as np
@@ -34,7 +36,7 @@ def evaluated(tmp_path_factory):
         tr._setup()
         tr.save_checkpoint("ckpt.0.pth")
         ev = run.main(["--run-type", "eval", "--exp-config", STAGE2, "--model-dir", str(d), "--device", "cpu",
-                       *OPTS, "VIDEO_OPTION", "[]", "USE_LAST_CKPT", "True"])
+                       *OPTS, "USE_LAST_CKPT", "True"])
         yield d, ev, read_scalars(str(d / "tb"))
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -61,7 +63,8 @@ def test_eval_takes_the_configured_query_strategy(evaluated):
     assert scalars["val/query_count"][0][1] == 1.0
 
 
-def test_eval_refuses_videos(tmp_path):
-    with pytest.raises(NotImplementedError, match="VIDEO_OPTION"):
-        run.main(["--run-type", "eval", "--exp-config", STAGE2, "--model-dir", str(tmp_path), "--device", "cpu",
-                  *OPTS])
+def test_eval_writes_videos(evaluated):
+    d, ev, _ = evaluated
+    assert list(ev.config.VIDEO_OPTION) == ["disk", "tensorboard"]
+    vids = sorted(os.listdir(ev.config.VIDEO_DIR))
+    assert 2 <= len(vids) <= 3 and all(v.startswith("episode=") and v.endswith(".gif") for v in vids), vids

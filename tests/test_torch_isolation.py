@@ -41,5 +41,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "dialog.speaker.speaker", "dialog.speaker.templates", "dialog.speaker.vocab",
                 "models.clip_bpe", "models.clip_text", "models.dialog_policy", "models.option_policy",
                 "rl.rollout_interactive", "rl.trainers.interactive", "models.rnn_state_encoder",
-                "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan"):
+                "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan",
+                "dialog.speaker.model", "dialog.speaker.pano_features", "dialog.speaker.train_speaker",
+                "dialog.speaker.eval_speaker", "utils.maps", "utils.video"):
         assert f"avlen_tpu_torch.{sub}" in names, sub

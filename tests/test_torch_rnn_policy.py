@@ -10,6 +10,8 @@ the Flax tree of the port's policy has the JAX init's paths and shapes, and
 the GRU's bare ``w_ih``/``w_hh``/``b_ih``/``b_hh`` cross the bridge in
 their own layout."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,3 +192,46 @@ def test_policy_evaluate_actions_matches_jax(policies):
                                         _t(p["seq_masks"]), _t(p["actions"]).long())
     for name, g, w in zip(("values", "log_probs", "entropy", "logits"), got, want):
         np.testing.assert_allclose(g.numpy(), _np(w), atol=2e-5, rtol=0, err_msg=name)
+
+
+def test_no_visual_policy_matches_jax():
+    """Neither depth nor RGB (a reference bank without cached frames): no
+    visual tower, the GRU fed by the audio CNN alone, as the JAX net builds
+    it; act's logits and values and evaluate_actions' log-probs within
+    2e-5. ``AVNavTrainer._make_policy`` builds that net from such an env."""
+    from avlen_tpu_torch.rl.trainers.avnav import AVNavTrainer
+
+    b, t, h = 3, 4, 32
+    rng = np.random.RandomState(11)
+    obs = {"spectrogram": rng.rand(b, 65, 26, 2).astype(np.float32)}
+    jpol = JaxPolicy(net=JaxNet(hidden_size=h, spectrogram_hw=(65, 26), use_depth=False), num_actions=4)
+    hidden = rng.randn(b, h).astype(np.float32)
+    masks = np.array([1.0, 0.0, 1.0], np.float32)
+    params = _init(jpol, rng, obs, hidden, masks, jax.random.key(1), method=JaxPolicy.act)
+    pol = Policy(AudioNavBaselineNet(hidden_size=h, spectrogram_hw=(65, 26), visual_hw=None, use_depth=False), 4)
+    assert not hasattr(pol.net, "visual_encoder")
+    load_flax_params(pol, jax.tree.map(np.asarray, params))
+    jact = jpol.apply(params, obs, hidden, masks, jax.random.key(2), True, method=JaxPolicy.act)
+    with torch.no_grad():
+        _, _, value, hid, logits = pol.act({k: _t(v) for k, v in obs.items()}, _t(hidden), _t(masks),
+                                           deterministic=True)
+    for got, want in ((value, jact[2]), (hid, jact[3]), (logits, jact[4])):
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5, rtol=0)
+    seq_obs = {"spectrogram": rng.rand(t, b, 65, 26, 2).astype(np.float32)}
+    seq_masks = (rng.rand(t, b) > 0.3).astype(np.float32)
+    actions = rng.randint(0, 4, (t, b)).astype(np.int32)
+    want = jpol.apply(params, seq_obs, hidden, seq_masks, jnp.asarray(actions), method=JaxPolicy.evaluate_actions)
+    with torch.no_grad():
+        got = pol.evaluate_actions({k: _t(v) for k, v in seq_obs.items()}, _t(hidden), _t(seq_masks),
+                                   _t(actions).long())
+    for name, g, w in zip(("values", "log_probs", "entropy", "logits"), got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=2e-5, rtol=0, err_msg=name)
+
+    env = types.SimpleNamespace(config=types.SimpleNamespace(sensors=("spectrogram", "pose")),
+                                bank=types.SimpleNamespace(depth=None, rgb=None),
+                                spec_config=types.SimpleNamespace(out_shape=(65, 26, 2)))
+    trainer = types.SimpleNamespace(env=env, config=types.SimpleNamespace(
+        RL=types.SimpleNamespace(PPO=types.SimpleNamespace(hidden_size=h)),
+        TASK_CONFIG=types.SimpleNamespace(TASK=types.SimpleNamespace(POSSIBLE_ACTIONS=["a", "b", "c", "d"]))))
+    built = AVNavTrainer._make_policy(trainer, torch.Generator().manual_seed(0))
+    assert sorted(_flatten(to_flax_params(built))) == sorted(_flatten(jax.tree.map(np.asarray, params)))
