@@ -73,10 +73,10 @@ _C.TPU.DONATE_ROLLOUTS = True  # donate superstep carry buffers (no copy)
 # chunked rollout execution (parallel/chunked.py): scan length per chunk on
 # the callback-free host data path. 0 = auto (≈num_steps/6, a divisor).
 _C.TPU.ROLLOUT_CHUNK = 0
-# host-prefetch audio serving (data/host_prefetch.py): "auto" engages it
-# when the RIR provider is an mmap HostRIRStore and the backend lacks host
-# callbacks (this TPU); "on" forces it (CI coverage on CPU); "off" restores
-# the round-3 behavior (io_callback or error).
+# host-prefetch audio serving of the JAX package (its data/host_prefetch.py,
+# for backends without host callbacks). It changes nothing in the port: a
+# torch step reads the mmap HostRIRStore on the host directly
+# (data/reference.py). Kept so that the two config trees stay key for key.
 _C.TPU.HOST_PREFETCH = "auto"
 # fused SMT-encode Pallas kernel (ops/pallas_smt.py): "auto" engages it on
 # TPU backends (the Mosaic kernel), "on" forces it everywhere (interpreter
@@ -280,9 +280,9 @@ _TC.SIMULATOR.AUDIO.DISTRACTOR_SOUND_DIR = "data/sounds/1s_all_distractor"
 # TPU-native: cap on padded RIR length in samples (bucketed padding)
 _TC.SIMULATOR.AUDIO.MAX_RIR_LENGTH = 24000
 # reference-data RIR storage: dense device bank below this byte size,
-# mmap HostRIRStore above (io_callback gathers, or the chunked host-prefetch
-# cache on callback-less backends — TPU.HOST_PREFETCH). Force 0 to route ALL
-# audio through the host store (real-Matterport-scale path).
+# mmap HostRIRStore above (each step reads its RIRs on the host and copies
+# them to the device, data/reference.py). Force 0 to route ALL audio through
+# the host store (real-Matterport-scale path).
 _TC.SIMULATOR.AUDIO.DENSE_RIR_MAX_BYTES = 2147483648
 # device associative-cache capacity (entries) for the host-prefetch audio
 # path; HBM cost ≈ slots × rir_len × 2ch × 4B (data/host_prefetch.py)

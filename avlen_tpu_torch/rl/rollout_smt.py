@@ -244,10 +244,9 @@ def evaluate_sequence_smt(
     actions_seq: torch.Tensor,  # (T, Bm)
 ):
     """PPO re-evaluation replaying the stored features into the ring one
-    step at a time, as the JAX package does with ``batched_eval`` off; here
-    the reference that ``evaluate_sequence_smt_batched`` is held to (the
-    trainer re-evaluates batched only). Returns (values, log_probs,
-    entropy, logits), each (T, Bm, ...)."""
+    step at a time (SCENE_MEMORY_TRANSFORMER.batched_eval off), the
+    reference that ``evaluate_sequence_smt_batched`` is held to. Returns
+    (values, log_probs, entropy, logits), each (T, Bm, ...)."""
     features = obs_seq["__feature"]
     sensor_obs = _sensor_obs(obs_seq)
     mem = initial_memory

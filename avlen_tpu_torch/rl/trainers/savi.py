@@ -35,7 +35,12 @@ from avlen_tpu_torch.models.smt_policy import AudioNavSMTNet, SMTPolicy
 from avlen_tpu_torch.rl.gae import compute_gae
 from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
 from avlen_tpu_torch.rl.rollout import RolloutBatch
-from avlen_tpu_torch.rl.rollout_smt import SMTCarry, collect_rollout_smt, evaluate_sequence_smt_batched
+from avlen_tpu_torch.rl.rollout_smt import (
+    SMTCarry,
+    collect_rollout_smt,
+    evaluate_sequence_smt,
+    evaluate_sequence_smt_batched,
+)
 from avlen_tpu_torch.rl.trainers.base import (
     BaseRLTrainer,
     EpisodeWindow,
@@ -71,11 +76,6 @@ class SaviTrainer(BaseRLTrainer):
         self.num_steps = cfg.RL.PPO.num_steps
         smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
         bp_cfg = cfg.RL.PPO.BELIEF_PREDICTOR
-        if not smt_cfg.batched_eval:
-            raise NotImplementedError(
-                "SCENE_MEMORY_TRANSFORMER.batched_eval False: the PyTorch port re-evaluates "
-                "the ring batched only (the same outputs as the sequential replay)"
-            )
         policy_path, belief_path = pretrained_paths(cfg)
         for path in (policy_path, belief_path):
             if path and not os.path.exists(path):
@@ -215,8 +215,11 @@ class SaviTrainer(BaseRLTrainer):
         # freeze_encoders (savi.yaml): the stored features are the frozen
         # towers' outputs, so re-evaluation skips the towers
         step = self.policy.evaluate_step_frozen if smt_cfg.freeze_encoders else self.policy.evaluate_step
-        return evaluate_sequence_smt_batched(step, obs, initial_memory, masks, actions,
-                                             chunk=smt_cfg.batched_eval_chunk)
+        if smt_cfg.batched_eval:
+            return evaluate_sequence_smt_batched(step, obs, initial_memory, masks, actions,
+                                                 chunk=smt_cfg.batched_eval_chunk)
+        # the sequential ring replay, one step of Bm rows at a time
+        return evaluate_sequence_smt(step, obs, initial_memory, masks, actions)
 
     def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
         """GAE, one PPO update and (with online belief training) one belief

@@ -1,14 +1,20 @@
 """Environment construction from config.
 
-PyTorch counterpart of ``avlen_tpu/sim/builder.py`` for
-``DATASET.SOURCE "synthetic"``: ONE batched env whose episode packing deals
-scenes round-robin across env slots. The reference-data source, cached
-frame banks and host-served RIRs belong to a later slice of the port and
-raise ``NotImplementedError``.
+PyTorch counterpart of ``avlen_tpu/sim/builder.py``: ONE batched env whose
+episode packing deals scenes round-robin across env slots, over a world from
+either source: ``DATASET.SOURCE "synthetic"`` (procedural worlds, their RIRs
+optionally re-served from the host, ``DATASET.SYNTHETIC.PACK_HOST_RIRS``) or
+``"reference"`` (the reference's on-disk tree, ``data/reference.py``).
+Cached frame banks (``DATASET.FRAME_CACHE_DIR``) belong to a later slice of
+the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import atexit
+import os
+import shutil
+import tempfile
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -19,8 +25,6 @@ from avlen_tpu_torch.core.episodes import EpisodeStreamer, pack_episodes
 from avlen_tpu_torch.sim.env import BatchedAudioNavEnv, EnvConfig, RewardConfig
 from avlen_tpu_torch.sim.scene import precompute_sound_fft_bank, precompute_spectrogram_bank
 from avlen_tpu_torch.sim.synthetic import make_episodes, make_scene_bank
-
-_LATER = "is not ported yet: it belongs to the host-served data slice of the PyTorch port (ROADMAP, queue 1)"
 
 
 def reward_config_from(config: ConfigNode) -> RewardConfig:
@@ -69,15 +73,37 @@ def build_world_from_config(
     seed: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
 ):
-    """(bank, tables, episodes) for DATASET.SOURCE "synthetic"."""
+    """(bank, tables, episodes) from either asset source (module doc)."""
     tc = config.TASK_CONFIG
     if tc.DATASET.SOURCE == "reference":
-        raise NotImplementedError(f"DATASET.SOURCE 'reference' {_LATER}")
+        from avlen_tpu_torch.data.reference import ReferenceDataConfig, build_reference_scene_bank
+
+        audio = tc.SIMULATOR.AUDIO
+        content = list(tc.DATASET.CONTENT_SCENES)
+        data_path = tc.DATASET.DATA_PATH.format(version=tc.DATASET.VERSION, split=tc.DATASET.SPLIT)
+        ref_cfg = ReferenceDataConfig(
+            metadata_dir=f"{audio.METADATA_DIR}/{tc.SIMULATOR.SCENE_DATASET}",
+            binaural_rir_dir=f"{audio.BINAURAL_RIR_DIR}/{tc.SIMULATOR.SCENE_DATASET}",
+            source_sound_dir=audio.SOURCE_SOUND_DIR,
+            data_path=data_path,
+            scene_observations_dir=(
+                f"{tc.SIMULATOR.SCENE_OBSERVATION_DIR}/{tc.SIMULATOR.SCENE_DATASET}"
+                if tc.SIMULATOR.USE_RENDERED_OBSERVATIONS else None
+            ),
+            sampling_rate=audio.RIR_SAMPLING_RATE,
+            grid_size=tc.SIMULATOR.GRID_SIZE,
+            max_rir_length=audio.MAX_RIR_LENGTH,
+            scenes=None if content == ["*"] else content,
+            dense_rir_max_bytes=int(audio.DENSE_RIR_MAX_BYTES),
+        )
+        return build_reference_scene_bank(ref_cfg, device=device)
+
     syn = tc.DATASET.SYNTHETIC
     if tc.DATASET.FRAME_CACHE_DIR:
-        raise NotImplementedError(f"DATASET.FRAME_CACHE_DIR {_LATER}")
-    if syn.PACK_HOST_RIRS:
-        raise NotImplementedError(f"DATASET.SYNTHETIC.PACK_HOST_RIRS {_LATER}")
+        raise NotImplementedError(
+            "DATASET.FRAME_CACHE_DIR (frame banks served by the native frame server) is not ported "
+            "yet: ROADMAP Queue 1 item 4"
+        )
     rng = np.random.RandomState(seed if seed is not None else syn.SEED)
     bank, tables = make_scene_bank(
         rng,
@@ -102,7 +128,52 @@ def build_world_from_config(
         max_hops=syn.MAX_HOPS,
         with_distractor=tc.SIMULATOR.AUDIO.HAS_DISTRACTOR_SOUND,
     )
+    if syn.PACK_HOST_RIRS:
+        pack_synthetic_host_rirs(bank, tc.SIMULATOR.AUDIO.RIR_SAMPLING_RATE)
     return bank, tables, episodes
+
+
+PACK_HOST_RIRS_MAX_BYTES = 16 << 30
+
+
+@torch.no_grad()
+def pack_synthetic_host_rirs(bank, sampling_rate: int, pack_dir: Optional[str] = None,
+                             chunk: int = 1024) -> str:
+    """Render every procedural RIR and re-serve them all through the mmap
+    ``HostRIRStore``, as ingested reference data is served: the config-only
+    route (DATASET.SYNTHETIC.PACK_HOST_RIRS) onto the host-served audio path
+    at any synthetic scale. The RIRs go to the file chunk by chunk, under
+    ``pack_dir`` (default: a temporary directory removed at exit). Returns
+    the index path; ``bank.rir`` becomes the store."""
+    from avlen_tpu_torch.data.reference import HostRIRStore, pack_dense_rir_chunks
+
+    s_count = bank.num_scenes
+    n = bank.max_nodes
+    length = bank.rir.length
+    total_bytes = s_count * 4 * n * n * length * 2 * 4
+    if total_bytes > PACK_HOST_RIRS_MAX_BYTES:
+        raise ValueError(
+            f"PACK_HOST_RIRS would render a {total_bytes / 2**30:.1f} GB dense "
+            "bank; shrink SYNTHETIC.SIDE/RIR_LENGTH (real reference data is "
+            "already served host-side without densification)"
+        )
+    combos = np.stack(
+        np.meshgrid(np.arange(s_count), np.arange(4), np.arange(n), np.arange(n), indexing="ij"), -1,
+    ).reshape(-1, 4)
+    combos = torch.as_tensor(combos, device=bank.device)
+
+    def chunks():
+        for i in range(0, combos.shape[0], chunk):
+            part = combos[i : i + chunk]
+            yield bank.rir.gather(part[:, 0], part[:, 1], part[:, 2], part[:, 3]).float().cpu().numpy()
+
+    if pack_dir is None:
+        pack_dir = tempfile.mkdtemp(prefix="avlen_packed_rirs_")
+        atexit.register(shutil.rmtree, pack_dir, ignore_errors=True)
+    idx = pack_dense_rir_chunks(chunks(), (s_count, 4, n, n), length, os.path.join(pack_dir, "rirs"),
+                                sampling_rate)
+    bank.rir = HostRIRStore(idx, device=bank.device)
+    return idx
 
 
 def construct_batched_env(
@@ -123,11 +194,15 @@ def construct_batched_env(
     sound_split = None
     held = list(tc.DATASET.HELD_OUT_SOUNDS)
     if held:
+        names = getattr(bank, "sound_names", None)
         held_ids = set()
         for h in held:
             if isinstance(h, str) and not h.lstrip("-").isdigit():
-                raise ValueError(f"HELD_OUT_SOUNDS entry {h!r} not in the sound set")
-            held_ids.add(int(h))
+                if names is None or h not in names:
+                    raise ValueError(f"HELD_OUT_SOUNDS entry {h!r} not in the sound set")
+                held_ids.add(names.index(h))
+            else:
+                held_ids.add(int(h))
         num_sounds = int(bank.sounds_padded.shape[0])
         train_ids = [i for i in range(num_sounds) if i not in held_ids]
         if not train_ids:
@@ -182,6 +257,10 @@ def construct_batched_env(
         has_distractor=tc.SIMULATOR.AUDIO.HAS_DISTRACTOR_SOUND,
         record_pose_info=bool(config.VIDEO_OPTION) or "TOP_DOWN_MAP" in tc.TASK.MEASUREMENTS,
     )
+    # the spectrogram bank renders through whatever serves the RIRs, the
+    # host store included (JAX skips it only for its chunked host-prefetch
+    # cache, which the port has no use for: a torch step reads the host
+    # directly, so TPU.HOST_PREFETCH changes nothing here)
     audio_cfg = tc.SIMULATOR.AUDIO
     if audio_cfg.CACHE_SPECTROGRAMS and not env_cfg.has_distractor:
         bank.spec_bank = precompute_spectrogram_bank(bank, max_bytes=audio_cfg.SPECTROGRAM_CACHE_MAX_BYTES)

@@ -25,12 +25,10 @@ import torch.nn.functional as F
 from avlen_tpu_torch.ops.audio import SpectrogramConfig, render_audiogoal
 from avlen_tpu_torch.ops.mapping import depth_to_egomap
 from avlen_tpu_torch.sim.graph import UNREACHABLE
-from avlen_tpu_torch.sim.scene import SceneBank
+from avlen_tpu_torch.sim.mp3d_utils import mp3d_id_to_task_id, task_id_to_mp3d_id
+from avlen_tpu_torch.sim.scene import SceneBank, serves_spectra
 
 STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT = 0, 1, 2, 3
-
-# sensors of the JAX env that later slices port
-_UNPORTED_SENSORS = ("semantic_object", "mpcat40_index")
 
 
 class EnvState(NamedTuple):
@@ -123,16 +121,19 @@ class BatchedAudioNavEnv:
     """Vectorized env over a SceneBank + packed episodes, on the bank's device."""
 
     def __init__(self, bank: SceneBank, packed: Dict[str, np.ndarray], config: EnvConfig):
-        unported = [s for s in config.sensors if s in _UNPORTED_SENSORS]
-        if unported:
-            raise NotImplementedError(f"sensors {unported} are not ported yet")
         self.bank = bank
         self.config = config
         self.device = bank.device
         self.eps = {k: torch.tensor(np.asarray(v), device=self.device) for k, v in packed.items()}
         self.num_envs = int(packed["order"].shape[0])
         self.spec_config = SpectrogramConfig(sampling_rate=bank.sampling_rate)
-        bank.rir.ensure_tables()
+        # procedural RIR providers serve analytic spectra (no per-step rFFT)
+        if hasattr(bank.rir, "ensure_tables"):
+            bank.rir.ensure_tables()
+        # SemanticObjectSensor's mpcat40 → task id and MPCAT40Index's task
+        # id → mpcat40 tables (soundspaces/tasks/nav.py:515-698)
+        self._mp3d_to_task = torch.as_tensor(mp3d_id_to_task_id(), device=self.device)
+        self._task_to_mp3d = torch.as_tensor(task_id_to_mp3d_id(), device=self.device)
 
     # ------------------------------------------------------------------
     def _episode_fields(self, ep_i: torch.Tensor, eps: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -395,7 +396,15 @@ class BatchedAudioNavEnv:
             obs["spectrogram"] = spec.float() * active[:, None, None, None]
         elif "spectrogram" in sensors or "audiogoal" in sensors:
             az = (4 - state.rot) % 4  # azimuth = -rotation (simulator.py:600-604)
-            rir_f = bank.rir.gather_fft(state.scene, az, state.node, state.goal_node)
+            # analytic spectra (ProceduralRIRBank.gather_fft) skip the
+            # per-step rFFT of the RIR; measured RIRs (a dense bank or the
+            # host store) come in the time domain
+            use_fft = serves_spectra(bank.rir)
+            rir = rir_f = None
+            if use_fft:
+                rir_f = bank.rir.gather_fft(state.scene, az, state.node, state.goal_node)
+            else:
+                rir = bank.rir.gather(state.scene, az, state.node, state.goal_node)
             sound_padded = bank.sounds_padded[state.sound]
             secs = bank.sound_secs[state.sound].long()
             audio_index = (state.offset + state.step_count) % torch.clamp(secs, min=1)
@@ -408,14 +417,19 @@ class BatchedAudioNavEnv:
                 dnode = torch.clamp(state.distractor_node, min=0)
                 has = (state.distractor_node >= 0)[:, None, None]
                 dsound = torch.clamp(state.distractor_sound, min=0)
-                drir_f = bank.rir.gather_fft(state.scene, az, state.node, dnode)
-                dargs["distractor_rir_f"] = drir_f * has.to(drir_f.dtype)
+                if use_fft:
+                    drir_f = bank.rir.gather_fft(state.scene, az, state.node, dnode)
+                    dargs["distractor_rir_f"] = drir_f * has.to(drir_f.dtype)
+                else:
+                    drir = bank.rir.gather(state.scene, az, state.node, dnode)
+                    dargs["distractor_rir"] = drir * has.to(drir.dtype)
                 dargs.update(distractor_sound_padded=bank.sounds_padded[dsound], has_distractor=True)
                 if bank.sound_fft_bank is not None:
                     dargs["distractor_seg_f"] = bank.sound_fft_bank[dsound, 0]
             audio, spec = render_audiogoal(
-                sound_padded, audio_index, None, active, bank.sampling_rate,
-                config=self.spec_config, rir_f=rir_f, rir_len=bank.rir.length, **dargs,
+                sound_padded, audio_index, rir, active, bank.sampling_rate,
+                config=self.spec_config, rir_f=rir_f,
+                rir_len=bank.rir.length if use_fft else None, **dargs,
             )
             if "audiogoal" in sensors:
                 obs["audiogoal"] = audio
@@ -426,6 +440,22 @@ class BatchedAudioNavEnv:
             obs["rgb"] = bank.rgb[state.scene, state.node, state.rot]
         if "depth" in sensors and bank.depth is not None:
             obs["depth"] = bank.depth[state.scene, state.node, state.rot]
+        if "semantic_object" in sensors and bank.semantic is not None:
+            # SemanticObjectSensor (nav.py:570-698): pixel instance ids →
+            # mpcat40 (the scene's .house table) → 21-way task ids, unknown
+            # classes as id 21; ids past the table read instance 0, negative
+            # ids count from its end and below -I read mpcat40 0 (JAX's
+            # take_along_axis)
+            inst = bank.semantic[state.scene, state.node, state.rot].long()  # (B, H, W)
+            inst_map = bank.semantic_instance_to_mp3d[state.scene]  # (B, I)
+            width = inst_map.shape[1]
+            inst = torch.where(inst >= width, torch.zeros_like(inst), inst)
+            inst = torch.where(inst < 0, inst + width, inst)
+            bsz, hh, ww = inst.shape
+            flat = inst.reshape(bsz, -1)
+            mp3d = torch.gather(inst_map, 1, torch.clamp(flat, min=0)).long()
+            mp3d = torch.where(flat < 0, torch.zeros_like(mp3d), mp3d)
+            obs["semantic_object"] = self._mp3d_to_task[torch.clamp(mp3d, 0, 199)].reshape(bsz, hh, ww)
         if "egomap" in sensors and bank.depth is not None:
             # EgoMap sensor (nav.py:236-406): depth → egocentric top-down
             # [obstacle, explored] map
@@ -435,6 +465,11 @@ class BatchedAudioNavEnv:
         b = state.node.shape[0]
         if "category" in sensors:
             obs["category"] = F.one_hot(state.category, cfg.num_categories).float()
+        if "mpcat40_index" in sensors:
+            # MPCAT40Index sensor (soundspaces/tasks/nav.py:515-569): the
+            # episode's category as its raw mpcat40 index, (B, 1)
+            table = self._task_to_mp3d
+            obs["mpcat40_index"] = table[torch.clamp(state.category, 0, table.shape[0] - 1)][:, None]
         if "category_belief" in sensors:
             obs["category_belief"] = torch.zeros((b, cfg.num_categories), dtype=torch.float32, device=self.device)
         if "location_belief" in sensors:

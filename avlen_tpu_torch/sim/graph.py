@@ -24,6 +24,7 @@ edge direction = round(deg(atan2(dz, dx))) % 360 on the X-Z plane.
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,22 +148,78 @@ def load_metadata_graph(points_file: str, graph_pkl: Optional[str] = None) -> Na
     """Load a SoundSpaces metadata graph (points.txt + optional graph.pkl).
 
     The reference's loader is soundspaces/utils.py:16-42 (points.txt rows:
-    ``index x y z``; graph.pkl a pickled networkx graph). When only points are
-    available, edges are inferred by grid adjacency.
+    ``index x y z``; graph.pkl a pickled networkx graph, whose node ``point``
+    attributes are the positions). The pickle is read without networkx
+    (``read_networkx_pickle``). When only points are available, edges are
+    inferred by grid adjacency.
     """
     pts = np.loadtxt(points_file, dtype=np.float32)
     positions = pts[:, 1:4] if pts.shape[1] >= 4 else pts
     if graph_pkl is not None:
-        import pickle
-
-        with open(graph_pkl, "rb") as f:
-            g = pickle.load(f)
-        nodes = sorted(g.nodes())
+        node_attrs, edge_list = read_networkx_pickle(graph_pkl)
+        nodes = sorted(node_attrs)
         index = {n: i for i, n in enumerate(nodes)}
-        positions = np.array([g.nodes[n]["point"] for n in nodes], np.float32)
-        edges = np.array([(index[a], index[b]) for a, b in g.edges()], np.int32)
+        positions = np.array([node_attrs[n]["point"] for n in nodes], np.float32)
+        edges = np.array([(index[a], index[b]) for a, b in edge_list], np.int32)
         return NavGraph(positions, edges)
     return infer_grid_graph(positions)
+
+
+class _PickledGraph:
+    """Takes the pickled state of a networkx graph: its node attributes
+    (``_node``, ``node`` before networkx 2) and adjacency (``_adj``/``adj``;
+    a directed graph's successors also as ``_succ``)."""
+
+    directed = False
+
+    def nodes(self) -> Dict:
+        return self.__dict__["_node"] if "_node" in self.__dict__ else self.__dict__["node"]
+
+    def adjacency(self) -> Dict:
+        d = self.__dict__
+        for key in ("_succ", "succ", "_adj", "adj"):
+            if key in d:
+                return d[key]
+        raise pickle.UnpicklingError("pickled networkx graph has no adjacency")
+
+
+class _PickledDiGraph(_PickledGraph):
+    directed = True
+
+
+_NETWORKX_GRAPHS = {"Graph": _PickledGraph, "DiGraph": _PickledDiGraph}
+
+
+class _GraphUnpickler(pickle.Unpickler):
+    """Maps networkx's Graph and DiGraph classes onto ``_PickledGraph``;
+    refuses any other networkx class (multigraphs, views)."""
+
+    def find_class(self, module: str, name: str):
+        if module == "networkx" or module.startswith("networkx."):
+            cls = _NETWORKX_GRAPHS.get(name)
+            if cls is None or not module.startswith("networkx.classes"):
+                raise pickle.UnpicklingError(f"unsupported networkx class in a graph pickle: {module}.{name}")
+            return cls
+        return super().find_class(module, name)
+
+
+def read_networkx_pickle(path: str) -> Tuple[Dict, List[Tuple]]:
+    """(node -> attribute dict, edge list) of a pickled networkx Graph or
+    DiGraph, in networkx's own orders: nodes as inserted, and edges as
+    ``G.edges()`` yields them (an undirected edge once, from the endpoint
+    whose adjacency comes first)."""
+    with open(path, "rb") as f:
+        g = _GraphUnpickler(f).load()
+    if not isinstance(g, _PickledGraph):
+        raise pickle.UnpicklingError(f"{path} does not hold a networkx graph")
+    edges: List[Tuple] = []
+    seen = set()
+    for n, nbrs in g.adjacency().items():
+        for nbr in nbrs:
+            if g.directed or nbr not in seen:
+                edges.append((n, nbr))
+        seen.add(n)
+    return g.nodes(), edges
 
 
 def infer_grid_graph(positions: np.ndarray, grid_size: float = 0.5) -> NavGraph:

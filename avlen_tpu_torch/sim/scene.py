@@ -1,12 +1,22 @@
 """Scene asset bank: stacked device tables + frames + sounds + RIR provider.
 
 PyTorch counterpart of ``avlen_tpu/sim/scene.py``. Every table is a tensor
-on the bank's device and shared by all env slots. The RIRs come from
-``ProceduralRIRBank``: direct-path impulses (distance delay, interaural level
-and time differences) plus one of ``num_tails`` exponentially decaying noise
-tails, served either in the time domain (``gather``) or directly as the
-spectra at the convolution length (``gather_fft``), which equal
-``rfft(gather(...))`` without a per-step transform.
+on the bank's device and shared by all env slots. The RIRs come from a
+provider with ``gather`` (B indices → (B, L, 2) time-domain RIRs) and
+``length``:
+
+* ``DenseRIRBank``: the full (S, 4, N, N, L, 2) tensor of measured RIRs
+  (reference data small enough to hold on the device);
+* ``data.reference.HostRIRStore``: measured RIRs read per step from a
+  memory-mapped host file;
+* ``ProceduralRIRBank``: direct-path impulses (distance delay, interaural
+  level and time differences) plus one of ``num_tails`` exponentially
+  decaying noise tails, served either in the time domain (``gather``) or
+  directly as the spectra at the convolution length (``gather_fft``), which
+  equal ``rfft(gather(...))`` without a per-step transform.
+
+A provider without ``tail_fft`` takes the time-domain audio path: the RIR's
+rFFT is computed every step before the partial irfft.
 
 The tails are drawn from a ``torch.Generator`` seeded with ``seed``; the JAX
 package draws them from ``jax.random``, so the two packages' tails differ.
@@ -23,6 +33,33 @@ import numpy as np
 import torch
 
 SPEED_OF_SOUND = 343.0
+
+
+class DenseRIRBank:
+    """Tensor of binaural RIRs indexed (scene, azimuth, receiver, source)."""
+
+    def __init__(self, rirs: torch.Tensor):
+        if rirs.ndim != 6 or rirs.shape[1] != 4 or rirs.shape[-1] != 2:
+            raise ValueError(f"RIR bank must be (S, 4, N, N, L, 2), got {tuple(rirs.shape)}")
+        self.rirs = rirs
+
+    @property
+    def length(self) -> int:
+        return self.rirs.shape[4]
+
+    @property
+    def device(self) -> torch.device:
+        return self.rirs.device
+
+    def gather(self, scene, az_idx, recv, src) -> torch.Tensor:
+        """(B,) indices → (B, L, 2) time-domain RIRs."""
+        return self.rirs[scene, az_idx, recv, src]
+
+
+def serves_spectra(rir) -> bool:
+    """Whether the RIR provider serves spectra at the convolution length
+    (``gather_fft``); the others take the time-domain audio path."""
+    return getattr(rir, "tail_fft", None) is not None
 
 
 @dataclasses.dataclass
@@ -169,7 +206,7 @@ class SceneBank:
     tables: Dict[str, torch.Tensor]  # positions/fwd_next/hops/oracle_next/num_nodes
     sounds_padded: torch.Tensor  # (K, L-1 + S_max) with L-1 leading zeros
     sound_secs: torch.Tensor  # (K,)
-    rir: ProceduralRIRBank
+    rir: object  # a provider with gather/length (module doc)
     rgb: Optional[torch.Tensor] = None  # (S, N, 4, H, W, 3) uint8
     depth: Optional[torch.Tensor] = None  # (S, N, 4, H, W, 1) f32
     semantic: Optional[torch.Tensor] = None  # (S, N, 4, H, W) int32 instance ids
@@ -228,19 +265,21 @@ def precompute_spectrogram_bank(
         axis=-1,
     ).reshape(-1, 5)
     idx = torch.as_tensor(idx, device=bank.device)
+    use_fft = serves_spectra(bank.rir)
     chunks = []
     for i in range(0, idx.shape[0], batch):
         scene, sound, az, recv, src = idx[i : i + batch].unbind(-1)
-        rir_f = bank.rir.gather_fft(scene, az, recv, src)
+        if use_fft:  # the analytic spectra, as the live env takes them
+            kw = dict(rir=None, rir_f=bank.rir.gather_fft(scene, az, recv, src), rir_len=bank.rir.length)
+        else:
+            kw = dict(rir=bank.rir.gather(scene, az, recv, src))
         _, spec = render_audiogoal(
             bank.sounds_padded[sound],
             torch.zeros_like(sound),
-            None,
-            torch.ones(sound.shape, dtype=torch.bool, device=bank.device),
-            bank.sampling_rate,
+            active=torch.ones(sound.shape, dtype=torch.bool, device=bank.device),
+            sampling_rate=bank.sampling_rate,
             config=cfg,
-            rir_f=rir_f,
-            rir_len=bank.rir.length,
+            **kw,
         )
         chunks.append(spec.to(dtype))
     return torch.cat(chunks, dim=0).reshape(s, k, 4, n, n, f, t, 2)

@@ -155,6 +155,32 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     and training env-steps/s (AV-WAN: high- and low-level steps),
     checkpoint bytes and save/load ms, eval seconds.
 
+18. ``reference_check``: the env over the fixture tree tests/data/
+    reference_tree (copied under ``build/chip_smoke_reference``; 4 kHz,
+    200-tap RIRs, every RIR from the mmap host store, no spectrogram bank),
+    16 envs, a reset and 10 steps of fixed actions on the CPU and on the
+    card: spectrograms within 2e-3; rgb, depth, semantic_object,
+    mpcat40_index, rewards and dones exact; 11 launches of each audio
+    kernel; a step's host-RIR ms (index sync, host read, H2D copy).
+19. ``reference_train_avnav`` and ``reference_train_savi``: AVNAV_YAML
+    (16 envs, hidden 512, 150 steps) and SAVI_YAML (16 envs, memory 150,
+    d_model 256, 8 heads) at full width through ``run.main`` from the
+    fixture tree, with the overrides ``reference_overrides`` names (the
+    data-path keys, RIR_SAMPLING_RATE 4000, DENSE_RIR_MAX_BYTES 0,
+    CACHE_SPECTROGRAMS False): train 2 → resume (exact) → train 1 → eval
+    of the tree's 3 episodes; ``bank.rir`` must be a HostRIRStore.
+    Env-steps/s, ms an update, a step's host-RIR ms, every kernel's
+    launches.
+20. ``hostrir_savi``: SAVI_YAML as shipped plus
+    DATASET.SYNTHETIC.PACK_HOST_RIRS True (every procedural RIR packed into
+    the mmap store: ~8.1 GB for 2 scenes of 89 nodes; one scene where the
+    temporary directory cannot hold it, and the phase says so): the pack's
+    seconds and bytes, one 150-step collect and one update with every RIR
+    read from the host, env-steps/s beside the ``rollout`` phase's, a step's
+    host-RIR ms, 151 launches of each audio kernel; then 20 steps of the
+    packed env against the procedural env of the same seed (spectrograms
+    within 2e-3, rewards and dones exact).
+
 The kernel checks (phase 7) then add ``smt_interactive_shapes``: the SMT
 kernel against its plain version at every AVLEN shape (the acting step's
 three at 6 envs; π_q's update at (45,151,320), with the gradient through
@@ -163,8 +189,10 @@ dialog pretraining at (8,4,288) and (24,4,288)), pretraining off and on,
 with both times and the bound; the irfft and spectrogram checks include
 dialog pretraining's 8 envs and the 44.1 kHz bank's launches (256 and 32
 renders: (·,2,32769) spectra at 65,536 points, the window [1999, 46099);
-(·,2,44100) audio), with the library call's time (``torch.fft.irfft`` +
-slice; ``torch.stft`` for the transform alone). Then the ``kernels`` summary line (with each
+(·,2,44100) audio) and the reference tree's (16 envs: (16,2,4097)
+spectra at 8,192 points, the window [199, 4199); (16,2,4000) audio), with
+the library call's time (``torch.fft.irfft`` + slice; ``torch.stft`` for
+the transform alone). Then the ``kernels`` summary line (with each
 kernel's launches in every phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -199,7 +227,11 @@ TRAIN_DIR = "build/chip_smoke_train"  # model dirs of the train_loop and eval ph
 EVAL_EPISODES = 32
 
 
+EMITTED = {}  # phase -> its last emitted fields, read by later phases
+
+
 def emit(phase: str, **fields) -> None:
+    EMITTED[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -672,12 +704,35 @@ def check_irfft(dev, gen, build_log: str):
         if not math.isfinite(err_n) or err_n > tol_n:
             raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
         del sp, got_n, want_n
+    # the reference tree's 4 kHz audio (200-tap RIRs: 8,192 points, one CTA
+    # a row), as reference_check and reference_train launch it
+    for case, (b, n, start, length) in REFERENCE_AUDIO.items():
+        sp = torch.fft.rfft(torch.randn(b, 2, n, generator=gen, device=dev), dim=-1)
+        got_n = irfft_cuda.partial_irfft(sp, n, start, length)
+        want_n = irfft_cuda.partial_irfft_plain(sp, n, start, length)
+        torch.cuda.synchronize()
+        tol_n = 1e-5 * max(want_n.abs().max().item(), 1.0)
+        err_n = (got_n - want_n).abs().max().item()
+        ms_n, how_n = time_ms(lambda: irfft_cuda.partial_irfft(sp, n, start, length))
+        plain_n, _ = time_ms(lambda: irfft_cuda.partial_irfft_plain(sp, n, start, length))
+        lib_n, _ = time_ms(lambda: torch.fft.irfft(sp, n=n, dim=-1)[..., start : start + length])
+        bound_n, bound_by_n = bound(2 * b * 2.5 * n * math.log2(n), sp.numel() * 8 + got_n.numel() * 4)
+        plan_n = irfft_cuda.irfft_plan(n, start, length, 2 * b)
+        reference = dict(shape=list(sp.shape), max_abs_err=err_n, tol=tol_n, ms=ms_n, plain_ms=plain_n,
+                         library_ms=lib_n, bound_ms=bound_n, bound_by=bound_by_n, share_of_bound=bound_n / ms_n,
+                         threads=plan_n.threads, cluster=plan_n.cluster)
+        emit("kernel", kernel="partial_irfft", case=case, **reference, timing=how_n)
+        if not math.isfinite(err_n) or err_n > tol_n:
+            raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
+        cases[f"{case}_rows"] = reference
+    ref_rows = {f"{case}_rows": cases.pop(f"{case}_rows") for case in REFERENCE_AUDIO}
     bank = {f"{case}_rows": cases.pop(f"{case}_rows") for case in BANK_44K_CASES}
     avlen = {f"{case}_rows": cases.pop(case) for case in AVLEN_AUDIO_ENVS}
     short = {int(case.rsplit("_", 1)[1]): fields for case, fields in cases.items()}
-    return dict(max_abs_err=max([err] + [f["max_abs_err"] for f in (*avlen.values(), *bank.values())]), ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
-                **avlen, **bank, short_rows=short)
+    return dict(max_abs_err=max([err] + [f["max_abs_err"] for f in (*avlen.values(), *bank.values(),
+                                                                    *ref_rows.values())]),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **extra,
+                **avlen, **bank, **ref_rows, short_rows=short)
 
 
 def spectrogram_flops_bytes(audio, out, cfg):
@@ -727,6 +782,7 @@ def check_spectrogram(dev, gen, build_log: str):
         ("short", 3, 8000, 1.0, None),
         *((case, b, 16000, 1.0, None) for case, b in AVLEN_AUDIO_ENVS.items()),
         *((case, b, 44100, 1.0, None) for case, b in BANK_44K_CASES.items()),
+        *((case, rows, out_len, 1.0, None) for case, (rows, _, _, out_len) in REFERENCE_AUDIO.items()),
     ):
         cfg = SpectrogramConfig(sampling_rate=sr)
         audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
@@ -777,12 +833,12 @@ def check_spectrogram(dev, gen, build_log: str):
             if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
                 raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
         else:
-            if case in AVLEN_AUDIO_ENVS or case in BANK_44K_CASES:
+            if case in AVLEN_AUDIO_ENVS or case in BANK_44K_CASES or case in REFERENCE_AUDIO:
                 fields["ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
                 fields["plain_ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
                 fields["bound_ms"], fields["bound_by"] = bound(*spectrogram_flops_bytes(audio, got, cfg))
                 fields["library_ms"] = None
-                if case in BANK_44K_CASES:
+                if case in BANK_44K_CASES or case in REFERENCE_AUDIO:
                     window = device_window(dev, cfg.n_fft, cfg.win_length)
                     flat = audio.reshape(-1, sr)
                     fields["stft_call_ms"], _ = time_ms(lambda: torch.stft(
@@ -809,7 +865,7 @@ def check_spectrogram(dev, gen, build_log: str):
            for case in AVLEN_AUDIO_ENVS},
         **{f"{case}_rows": {k: results[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                            "stft_call_ms", "bound_ms", "bound_by", "share_of_bound")}
-           for case in BANK_44K_CASES},
+           for case in (*BANK_44K_CASES, *REFERENCE_AUDIO)},
         ptxas=ptxas)
 
 
@@ -2705,7 +2761,8 @@ def _loop_fields(tr, seconds: float, stack: str):
     updates = max(tr.num_updates_done, 1)
     t_steps, b = tr.num_steps, tr.env.num_envs
     collect_s, update_s = totals["collect_time"], totals["update_time"]
-    f = dict(seconds=seconds, setup_s=tr.setup_seconds, env_build_s=tr.bank_seconds, updates=tr.num_updates_done,
+    f = dict(seconds=seconds, setup_s=tr.setup_seconds, env_build_s=getattr(tr, "bank_seconds", None),
+             updates=tr.num_updates_done,
              num_steps_done=tr.num_steps_done, ms_per_update=(collect_s + update_s) * 1e3 / updates,
              collect_ms_per_update=collect_s * 1e3 / updates, update_ms_per_update=update_s * 1e3 / updates,
              collect_env_steps_per_s=t_steps * b * updates / collect_s,
@@ -2924,6 +2981,374 @@ def run_avwan_episodes(smi: str, root: str = BASELINE_DIR):
     return fields
 
 
+
+# ---------------------------------------------------------------------------
+# reference-format data: the fixture tree and host-served RIRs
+# ---------------------------------------------------------------------------
+REFERENCE_TREE = "tests/data/reference_tree"  # one scene of 4 nodes, 4 kHz, 200-tap RIRs, 3 episodes
+REFERENCE_DIR = "build/chip_smoke_reference"  # the tree's copy (and its pack) and the model dirs
+REFERENCE_ENVS = 16  # reference_check's envs, as the full-width configs of reference_train run
+REFERENCE_STEPS = 10
+REFERENCE_SPEC_TOL = 2e-3  # the card's spectrograms against the CPU's (test_torch_env.py's limit)
+REFERENCE_SENSORS = ("['SPECTROGRAM_SENSOR','CATEGORY','POSE_SENSOR','COLLISION','ORACLE_ACTION_SENSOR',"
+                     "'POINTGOAL_WITH_GPS_COMPASS_SENSOR','SEMANTIC_OBJECT_SENSOR','MPCAT40_INDEX_SENSOR']")
+REFERENCE_EVAL_EPISODES = 3  # every episode of the tree
+# the fixture's audio at the kernels: (rows, fft_len, out_start, out_len) of
+# the irfft, 4 kHz audio of the spectrogram
+REFERENCE_AUDIO = {"reference_4k": (REFERENCE_ENVS, 8192, 199, 4000)}
+HOSTRIR_COMPARE_STEPS = 20
+
+
+def reference_overrides(tree: str):
+    """The overrides of a shipped config that train it from the reference
+    tree at ``tree``: the data-path keys, its rate (RIR_SAMPLING_RATE 4000),
+    every RIR from the host store (DENSE_RIR_MAX_BYTES 0) and no
+    spectrogram bank (CACHE_SPECTROGRAMS False), so that every step runs
+    both audio kernels on host-served RIRs."""
+    return [
+        "TASK_CONFIG.DATASET.SOURCE", "reference",
+        "TASK_CONFIG.DATASET.DATA_PATH",
+        os.path.join(tree, "datasets", "semantic_audionav", "v1", "train", "train.json.gz"),
+        "TASK_CONFIG.SIMULATOR.SCENE_DATASET", "mp3d",
+        "TASK_CONFIG.SIMULATOR.AUDIO.METADATA_DIR", os.path.join(tree, "metadata"),
+        "TASK_CONFIG.SIMULATOR.AUDIO.BINAURAL_RIR_DIR", os.path.join(tree, "binaural_rirs"),
+        "TASK_CONFIG.SIMULATOR.AUDIO.SOURCE_SOUND_DIR", os.path.join(tree, "sounds", "1s_all"),
+        "TASK_CONFIG.SIMULATOR.SCENE_OBSERVATION_DIR", os.path.join(tree, "scene_observations"),
+        "TASK_CONFIG.SIMULATOR.AUDIO.RIR_SAMPLING_RATE", "4000",
+        "TASK_CONFIG.SIMULATOR.AUDIO.DENSE_RIR_MAX_BYTES", "0",
+        "TASK_CONFIG.SIMULATOR.AUDIO.CACHE_SPECTROGRAMS", "False",
+    ]
+
+
+def copy_reference_tree(root: str = REFERENCE_DIR) -> str:
+    """A fresh copy of the fixture tree under ``root`` (git-ignored), without
+    any pack: the runs pack it there, never under tests/."""
+    tree = os.path.abspath(os.path.join(root, "tree"))
+    shutil.rmtree(tree, ignore_errors=True)
+    shutil.copytree(REFERENCE_TREE, tree, ignore=shutil.ignore_patterns("_packed"))
+    return tree
+
+
+@contextlib.contextmanager
+def host_rir_profile(*stores):
+    """Within the block, the gathers of ``stores`` and of every HostRIRStore
+    made in it: their index synchronisation and host read (host clock) and
+    their copies (CUDA events), in one ``HostRIRStore.profile`` dict."""
+    from avlen_tpu_torch.data.reference import HostRIRStore
+
+    prof = {}
+    init = HostRIRStore.__init__
+
+    def profiled(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.profile = prof
+
+    for store in stores:
+        store.profile = prof
+    HostRIRStore.__init__ = profiled
+    try:
+        yield prof
+    finally:
+        HostRIRStore.__init__ = init
+        for store in stores:
+            store.profile = None
+
+
+def host_rir_fields(prof: dict, steps: int) -> dict:
+    """A step's ms of the host-served RIRs from ``host_rir_profile``:
+    ``steps`` env steps (each one gather a step, two with a distractor)."""
+    events = prof.get("copy_events", [])
+    if events:
+        events[-1][1].synchronize()
+    calls = prof.get("calls", 0)
+    copy_ms = float(sum(start.elapsed_time(end) for start, end in events))
+    return dict(gathers=calls, rows=prof.get("rows", 0), steps=steps,
+                index_sync_ms_per_step=prof.get("index_sync_s", 0.0) * 1e3 / max(steps, 1),
+                host_read_ms_per_step=prof.get("host_read_s", 0.0) * 1e3 / max(steps, 1),
+                h2d_copy_ms_per_step=copy_ms / max(steps, 1),
+                host_rir_ms_per_step=(prof.get("index_sync_s", 0.0) + prof.get("host_read_s", 0.0)) * 1e3
+                / max(steps, 1) + copy_ms / max(steps, 1))
+
+
+def check_reference_data(dev, root: str = REFERENCE_DIR, steps: int = REFERENCE_STEPS):
+    """``reference_check``: the env over the fixture tree (the reference
+    overrides; every RIR from the host store, no bank) on the CPU (plain
+    versions) and on the card (kernels, RIRs through the pinned staging
+    buffers): reset + ``steps`` steps of fixed actions. Spectrograms within
+    REFERENCE_SPEC_TOL; rgb, depth, semantic_object, mpcat40_index,
+    rewards and dones exact; one launch of each audio kernel a step and
+    one at the reset on the card."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.data.reference import HostRIRStore
+    from avlen_tpu_torch.sim.builder import construct_batched_env
+
+    tree = copy_reference_tree(root)
+    cfg = get_config(SAVI_YAML, opts=reference_overrides(tree) + [
+        "TASK_CONFIG.TASK.SENSORS", REFERENCE_SENSORS, "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "6",
+        "NUM_PROCESSES", str(REFERENCE_ENVS)])
+    actions = torch.as_tensor(np.random.RandomState(0).randint(0, 4, (steps, REFERENCE_ENVS)))
+    wrappers = _kernel_wrappers()
+    runs = {}
+    for d in ("cpu", dev):
+        env = construct_batched_env(cfg, with_depth=True, with_rgb=True,
+                                    extra_sensors=("category_belief", "location_belief", "category"), device=d)
+        if not isinstance(env.bank.rir, HostRIRStore) or env.bank.spec_bank is not None:
+            raise AssertionError(f"reference_check: RIRs from {type(env.bank.rir).__name__}, bank "
+                                 f"{env.bank.spec_bank is not None}")
+        for fn in wrappers.values():
+            fn.launches = 0
+        with host_rir_profile(env.bank.rir) as prof:
+            state, obs = env.reset()
+            seq = [(obs, None, None)]
+            for a in actions:
+                state, out = env.step(state, a.to(d))
+                seq.append((out.obs, out.reward, out.done))
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        runs[str(d)] = (seq, launches, prof)
+    (ref, _, _), (got, launches, prof) = runs["cpu"], runs[str(dev)]
+    spec_err, exact_diff = 0.0, collections.Counter()
+    for (r_obs, r_rew, r_done), (g_obs, g_rew, g_done) in zip(ref, got):
+        spec_err = max(spec_err, (g_obs["spectrogram"].cpu() - r_obs["spectrogram"]).abs().max().item())
+        for k in ("rgb", "depth", "semantic_object", "mpcat40_index"):
+            exact_diff[k] += int(not torch.equal(g_obs[k].cpu(), r_obs[k]))
+        if r_rew is not None:
+            exact_diff["reward"] += int(not torch.equal(g_rew.cpu(), r_rew))
+            exact_diff["done"] += int(not torch.equal(g_done.cpu(), r_done))
+    dones = int(sum(int(d.sum()) for _, _, d in ref[1:]))
+    fields = dict(tree=REFERENCE_TREE, overrides=reference_overrides("<tree>"),
+                  check_overrides=["TASK_CONFIG.TASK.SENSORS", REFERENCE_SENSORS,
+                                   "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "6"], num_envs=REFERENCE_ENVS,
+                  steps=steps, dones=dones, spectrogram_max_abs_err=spec_err, spectrogram_tol=REFERENCE_SPEC_TOL,
+                  steps_differing=dict(exact_diff), launches=launches,
+                  host_rir=host_rir_fields(prof, steps + 1),
+                  spectrogram_peak=max(o["spectrogram"].abs().max().item() for o, _, _ in ref))
+    emit("reference_check", **fields)
+    if spec_err > REFERENCE_SPEC_TOL or any(exact_diff.values()):
+        raise AssertionError(f"reference_check: the card differs from the CPU: spectrogram {spec_err}, "
+                             f"steps differing {dict(exact_diff)}")
+    if any(launches[k] != steps + 1 for k in ("partial_irfft", "spectrogram")) or launches["smt_encode"]:
+        raise AssertionError(f"reference_check: launches {launches}, want {steps + 1} of each audio kernel")
+    if not dones or not fields["spectrogram_peak"] > 0:
+        raise AssertionError(f"reference_check: {dones} episodes ended, spectrogram peak {fields['spectrogram_peak']}")
+    return fields
+
+
+def run_reference_train(stack: str, smi: str, root: str = REFERENCE_DIR):
+    """``reference_train``: ``stack``'s shipped config at full width
+    (AVNAV_YAML: 16 envs, hidden 512, 150 steps; SAVI_YAML: 16 envs, memory
+    150, d_model 256, 8 heads) through ``run.main``, fed by the fixture tree
+    with the reference overrides (every RIR from the host store): train 2
+    updates → resume (parameters and optimizer states exactly ckpt.1's
+    before its first update) → train 1 → eval of every episode of the tree.
+    Env-steps/s, ms an update, a step's host-RIR ms (index sync, host read,
+    H2D copy) and every kernel's launches, counted from zero over the
+    phase."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.core.registry import registry
+    from avlen_tpu_torch.data.reference import HostRIRStore
+    from avlen_tpu_torch.utils.checkpoint import load_checkpoint
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    yaml = AVNAV_YAML if stack == "avnav" else SAVI_YAML
+    tree = copy_reference_tree(root)
+    model_dir = os.path.abspath(os.path.join(root, stack))
+    shutil.rmtree(model_dir, ignore_errors=True)
+    ckpt1 = os.path.join(model_dir, "data", "ckpt.1.pth")
+    overrides = reference_overrides(tree)
+    main = lambda *args, run_type="train": run.main(  # noqa: E731
+        ["--run-type", run_type, "--exp-config", yaml, "--model-dir", model_dir, *overrides, *args])
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    fields = dict(nvidia_smi=smi, config=yaml, overrides=reference_overrides("<tree>"))
+    with host_rir_profile() as prof:
+        t0 = time.perf_counter()
+        tr = main("NUM_UPDATES", "2", "CHECKPOINT_INTERVAL", "1")
+        torch.cuda.synchronize()
+        fields["train"] = _loop_fields(tr, time.perf_counter() - t0, stack)
+        fields["train"]["host_rir"] = host_rir_fields(prof, tr.num_steps_done // tr.env.num_envs + 1)
+        store = tr.env.bank.rir
+        fields["store"] = dict(type=type(store).__name__, length=store.length, sampling_rate=store.sampling_rate,
+                               num_envs=tr.env.num_envs, num_steps=tr.num_steps, max_nodes=tr.env.bank.max_nodes,
+                               sensors=list(tr.env.config.sensors))
+        is_store = isinstance(store, HostRIRStore)
+        del tr, store
+    saved = load_checkpoint(ckpt1)
+    fields["checkpoint_bytes"] = os.path.getsize(ckpt1)
+    checked = {}
+    cls = registry.get_trainer("AVNavTrainer" if stack == "avnav" else "savi")
+    collect = cls.collect
+
+    def first_collect(self, *args, **kwargs):
+        if not checked:
+            checked.update(state_differences(self, saved))
+            checked["num_steps_done"] = self.num_steps_done
+        return collect(self, *args, **kwargs)
+
+    cls.collect = first_collect
+    try:
+        t0 = time.perf_counter()
+        tr = main("NUM_UPDATES", "1", "RESUME_CHECKPOINT", "True")
+        torch.cuda.synchronize()
+    finally:
+        cls.collect = collect
+    fields["resume"] = dict(_loop_fields(tr, time.perf_counter() - t0, stack), restored_max_abs_diff=checked,
+                            ckpt2_written=os.path.isfile(os.path.join(model_dir, "data", "ckpt.2.pth")))
+    want_steps = int(saved["extra_state"]["step"])
+    del tr, saved
+    with eval_videos_recorded() as rec:
+        t0 = time.perf_counter()
+        tr = main("USE_LAST_CKPT", "True", "EVAL.SPLIT", "train", "TEST_EPISODE_COUNT",
+                  str(REFERENCE_EVAL_EPISODES), run_type="eval")
+        torch.cuda.synchronize()
+    ids = tr._last_eval_episode_ids
+    scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(model_dir, "tb")).items() if k.startswith("val/")}
+    fields["eval"] = dict(seconds=time.perf_counter() - t0, episodes=len(ids), distinct_ids=len(set(ids)),
+                          episodes_evaluated=scalars.get("val/episodes_evaluated"), success=scalars.get("val/success"),
+                          spl=scalars.get("val/spl"), videos=video_report(tr.config, rec))
+    del tr
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    fields["launches"] = launches
+    emit(f"reference_train_{stack}", **fields)
+    if not is_store:
+        raise AssertionError(f"reference_train_{stack}: bank.rir is a {fields['store']['type']}, not a HostRIRStore")
+    if checked.get("num_steps_done") != want_steps or any(v != 0 for k, v in checked.items() if k != "num_steps_done"):
+        raise AssertionError(f"reference_train_{stack}: resume did not restore ckpt.1 exactly: {checked}")
+    if not fields["resume"]["ckpt2_written"]:
+        raise AssertionError(f"reference_train_{stack}: the resumed run wrote no ckpt.2")
+    ev = fields["eval"]
+    if not ev["episodes"] == ev["distinct_ids"] == ev["episodes_evaluated"] == REFERENCE_EVAL_EPISODES:
+        raise AssertionError(f"reference_train_{stack}: eval counted {ev}")
+    # one launch of each audio kernel a step (and one a reset) in the
+    # loops alone: 3 updates of num_steps steps
+    least = 3 * fields["store"]["num_steps"]
+    if any(launches[k] < least for k in ("partial_irfft", "spectrogram")):
+        raise AssertionError(f"reference_train_{stack}: launches {launches}, want at least {least} of each "
+                             "audio kernel")
+    if (launches["smt_encode"] > 0) != (stack == "savi"):
+        raise AssertionError(f"reference_train_{stack}: the SMT kernel launched {launches['smt_encode']} times")
+    for part in ("train", "resume"):
+        if not all(math.isfinite(v) for v in fields[part].values() if isinstance(v, float)):
+            raise AssertionError(f"reference_train_{stack}: non-finite readings {fields[part]}")
+    return launches
+
+
+def run_hostrir_savi(dev, smi: str):
+    """``hostrir_savi``: savi.yaml as shipped (2 scenes of up to 89 nodes,
+    16 kHz, 16,000-tap RIRs) plus DATASET.SYNTHETIC.PACK_HOST_RIRS True:
+    the setup renders every procedural RIR into the mmap store (its seconds
+    and bytes), then one 150-step collect and one update, every RIR read
+    from the host: env-steps/s beside the procedural ``rollout`` phase, a
+    step's host-RIR ms, and 151 launches of each audio kernel from the
+    setup's reset through the collect. Then the first
+    HOSTRIR_COMPARE_STEPS steps of the packed env against the procedural
+    env of the same seed (its analytic spectra): spectrograms within
+    REFERENCE_SPEC_TOL. Where the temporary directory cannot hold the pack,
+    the world is cut to one scene, and the phase says so."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.data.reference import HostRIRStore
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+    from avlen_tpu_torch.sim import builder
+
+    base = get_config(SAVI_YAML)
+    syn = base.TASK_CONFIG.DATASET.SYNTHETIC
+    # the largest node count the shipped world can have: a SIDE x SIDE grid
+    want_bytes = syn.NUM_SCENES * 4 * (syn.SIDE ** 2) ** 2 * syn.RIR_LENGTH * 2 * 4
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    cut = [] if free > 1.1 * want_bytes else ["TASK_CONFIG.DATASET.SYNTHETIC.NUM_SCENES", "1"]
+    opts = ["TASK_CONFIG.DATASET.SYNTHETIC.PACK_HOST_RIRS", "True", *cut]
+    cfg = get_config(SAVI_YAML, opts=opts)
+    packs = []
+    pack = builder.pack_synthetic_host_rirs
+
+    def timed_pack(bank, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = pack(bank, *args, **kwargs)
+        packs.append(dict(seconds=time.perf_counter() - t0, index=idx,
+                          bytes=os.path.getsize(idx[: -len(".npz")] + ".bin")))
+        return idx
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    builder.pack_synthetic_host_rirs = timed_pack
+    try:
+        t0 = time.perf_counter()
+        tr = SaviTrainer(cfg, device=dev)
+        tr._setup()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        builder.pack_synthetic_host_rirs = pack
+    with host_rir_profile(tr.env.bank.rir) as prof:
+        t0 = time.perf_counter()
+        _, batch = tr.collect()
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        host_rir = host_rir_fields(prof, tr.num_steps)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    t0 = time.perf_counter()
+    stats = tr.update(batch)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    store = tr.env.bank.rir
+    t_steps, b = batch.actions.shape
+    fields = dict(nvidia_smi=smi, config=SAVI_YAML, overrides=opts, temp_free_bytes=free, pack_bytes_at_most=want_bytes,
+                  cut=cut or None, pack=packs, store=type(store).__name__, rir_length=store.length,
+                  max_nodes=tr.env.bank.max_nodes, num_scenes=tr.env.bank.num_scenes,
+                  spectrogram_bank=tr.env.bank.spec_bank is not None, setup_s=setup_s, rollout_s=rollout_s,
+                  env_steps_per_s=t_steps * b / rollout_s,
+                  procedural_rollout_env_steps_per_s=EMITTED.get("rollout", {}).get("env_steps_per_s"),
+                  update_ms=update_ms, losses={k: float(v) for k, v in stats.items()}, host_rir=host_rir,
+                  launches=launches)
+
+    # the packed env against the procedural env of the same seed
+    actions = torch.as_tensor(np.random.RandomState(1).randint(0, 4, (HOSTRIR_COMPARE_STEPS, b)), device=dev)
+    ref = builder.construct_batched_env(get_config(SAVI_YAML, opts=cut), num_envs=b, with_depth=True,
+                                        with_rgb=True, extra_sensors=("category_belief", "location_belief",
+                                                                      "category"), device=dev)
+    errs = []
+    with torch.no_grad():
+        (state, obs), (rstate, robs) = tr.env.reset(), ref.reset()
+        errs.append((obs["spectrogram"] - robs["spectrogram"]).abs().max().item())
+        for a in actions:
+            state, out = tr.env.step(state, a)
+            rstate, rout = ref.step(rstate, a)
+            errs.append((out.obs["spectrogram"] - rout.obs["spectrogram"]).abs().max().item())
+            if not torch.equal(out.reward, rout.reward) or not torch.equal(out.done, rout.done):
+                raise AssertionError("hostrir_savi: the packed env's rewards or dones differ from the procedural env's")
+    fields.update(compare_steps=HOSTRIR_COMPARE_STEPS, spectrogram_max_abs_err=max(errs),
+                  spectrogram_tol=REFERENCE_SPEC_TOL, procedural_uses_spectra=ref.bank.rir.tail_fft is not None)
+    pack_dir = os.path.dirname(store.index_path)
+    del tr, store, ref, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(pack_dir, ignore_errors=True)
+    emit("hostrir_savi", **fields)
+    if fields["store"] != HostRIRStore.__name__ or fields["spectrogram_bank"] or len(packs) != 1:
+        raise AssertionError(f"hostrir_savi: RIRs from {fields['store']}, bank {fields['spectrogram_bank']}, "
+                             f"{len(packs)} packs")
+    if any(launches[k] != t_steps + 1 for k in ("partial_irfft", "spectrogram")) or launches["smt_encode"] < t_steps + 1:
+        raise AssertionError(f"hostrir_savi: launches {launches}, want {t_steps + 1} of each audio kernel")
+    if not all(math.isfinite(v) for v in fields["losses"].values()):
+        raise AssertionError(f"hostrir_savi: non-finite losses {fields['losses']}")
+    if not max(errs) <= REFERENCE_SPEC_TOL:
+        raise AssertionError(f"hostrir_savi: spectrograms differ from the procedural env's by {max(errs)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2978,6 +3403,10 @@ def main() -> int:
     check_baseline_reference(dev, "avwan")
     baseline_launches = {stack: run_baseline_train(stack, smi) for stack in ("avnav", "avwan")}
     run_avwan_episodes(smi)
+    reference_launches = {"reference_check": check_reference_data(dev)["launches"]}
+    for stack in ("avnav", "savi"):
+        reference_launches[f"reference_train_{stack}"] = run_reference_train(stack, smi)
+    reference_launches["hostrir_savi"] = run_hostrir_savi(dev, smi)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3007,6 +3436,7 @@ def main() -> int:
          "launches_dialog_pretrain": dialog_launches[name], "launches_interactive_train": avlen_launches[name],
          "launches_avnav_train": baseline_launches["avnav"][name],
          "launches_avwan_train": baseline_launches["avwan"][name],
+         **{f"launches_{phase}": counts[name] for phase, counts in reference_launches.items()},
          **results[name],
          "status": "ok"}
         for name in meta

@@ -658,3 +658,46 @@ def test_gif_writer_round_trips_on_the_card_machine(dev, tmp_path):
     for i, f in enumerate(frames):
         im.seek(i)
         np.testing.assert_array_equal(np.asarray(im.convert("RGB")), f)
+
+
+def test_audio_kernels_at_the_reference_tree(dev):
+    """The reference tree's audio: 16 envs of 8,192-point convolutions (4 kHz,
+    200-tap RIRs, the window [199, 4199)), then their (16,2,4000)
+    spectrograms."""
+    _check_audio_kernels(dev, 16, 8192, 199, 4000)
+
+
+def test_host_rir_store_on_the_card_serves_the_host_reads(dev, tmp_path):
+    """HostRIRStore.gather on the card, through its two pinned staging
+    buffers: each of many back-to-back gathers (goal and distractor sized,
+    a larger batch growing a buffer) equals ``gather_host`` of the same
+    indices, although the buffers are reused while earlier copies may
+    still be queued behind device work."""
+    from avlen_tpu_torch.data.reference import HostRIRStore, pack_dense_rirs
+
+    rng = np.random.RandomState(0)
+    rirs = rng.randn(2, 4, 5, 5, 300, 2).astype(np.float32)
+    store = HostRIRStore(pack_dense_rirs(rirs, str(tmp_path / "rirs"), 4000), device=dev)
+    outs, wants = [], []
+    for b in (16, 16, 16, 64, 16, 3):
+        idx = [rng.randint(0, n, b) for n in (2, 4, 5, 5)]
+        torch.cuda._sleep(1_000_000)  # device work ahead of the copies
+        outs.append(store.gather(*(torch.as_tensor(i, device=dev) for i in idx)))
+        wants.append(rirs[tuple(idx)])
+    for got, want in zip(outs, wants):
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_reference_tree_env_on_the_card_matches_the_cpu(dev, tmp_path):
+    """chip_smoke's reference_check: the fixture tree's env (every RIR from
+    the host store, no bank) on the card against the CPU over a reset and
+    10 steps: spectrograms within 2e-3; rgb, depth, semantic_object,
+    mpcat40_index, rewards and dones exact; 11 launches of each audio
+    kernel."""
+    import chip_smoke
+
+    fields = chip_smoke.check_reference_data(dev, root=str(tmp_path))
+    assert fields["spectrogram_max_abs_err"] <= chip_smoke.REFERENCE_SPEC_TOL
+    assert fields["launches"]["partial_irfft"] == chip_smoke.REFERENCE_STEPS + 1
+    assert fields["dones"] > 0

@@ -2,9 +2,10 @@
 (the subpackages pretraining/, dialog/ and dialog/speaker/ among them)
 loads no jax, jaxlib, flax or optax module and nothing of the JAX package
 avlen_tpu (whose name avlen_tpu_torch merely starts with); nor msgpack,
-tensorboardX, tensorboard or imageio, which the card's machine does not
-have (the port writes its checkpoints and event files itself), nor
-``regex`` (the CLIP tokenizer's split runs on the standard ``re``)."""
+tensorboardX, tensorboard, imageio or networkx, which the card's machine
+does not have (the port writes its checkpoints and event files itself and
+reads pickled networkx graphs without it), nor ``regex`` (the CLIP
+tokenizer's split runs on the standard ``re``)."""
 
 import os
 import subprocess
@@ -21,7 +22,8 @@ for name in names:
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "avlen_tpu",
-                           "msgpack", "tensorboardX", "tensorboard", "imageio", "regex")
+                           "msgpack", "tensorboardX", "tensorboard", "imageio", "regex",
+                           "networkx")
 )
 print(len(names))
 print(" ".join(bad))
@@ -43,5 +45,6 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "rl.rollout_interactive", "rl.trainers.interactive", "models.rnn_state_encoder",
                 "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan",
                 "dialog.speaker.model", "dialog.speaker.pano_features", "dialog.speaker.train_speaker",
-                "dialog.speaker.eval_speaker", "utils.maps", "utils.video"):
+                "dialog.speaker.eval_speaker", "utils.maps", "utils.video", "data.reference", "sim.mp3d_utils",
+                "sim.graph"):
         assert f"avlen_tpu_torch.{sub}" in names, sub

@@ -6,9 +6,8 @@ use_belief_predictor. A chosen path that does not exist raises
 FileNotFoundError as in JAX; one that exists is a real checkpoint (a
 critic head only) whose leaves ``_setup`` merges into the policy of a tiny
 world; a path JAX never reads raises nothing.
-Also: a precision other than float32 is refused, not run in float32, and
-so is the sequential ring replay (``batched_eval`` off), which no config
-asks for."""
+Also: a precision other than float32 is refused, not run in float32; the
+sequential ring replay (``batched_eval`` off) sets up as JAX's does."""
 
 import numpy as np
 import pytest
@@ -75,7 +74,7 @@ def _setup(tmp_path, monkeypatch, opts, loads=False):
      FileNotFoundError),
     (["RL.PPO.SCENE_MEMORY_TRANSFORMER.pretrained_path", "EXISTING"], LOADS),
     (["TPU.PRECISION", "bfloat16"], NotImplementedError),
-    (["RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval", "False"], NotImplementedError),
+    (["RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval", "False"], _PastTheChecks),
 ])
 def test_setup_reads_the_paths_jax_reads(tmp_path, monkeypatch, opts, raises):
     if raises == LOADS:
