@@ -74,9 +74,10 @@ _C.TPU.DONATE_ROLLOUTS = True  # donate superstep carry buffers (no copy)
 # the callback-free host data path. 0 = auto (≈num_steps/6, a divisor).
 _C.TPU.ROLLOUT_CHUNK = 0
 # host-prefetch audio serving of the JAX package (its data/host_prefetch.py,
-# for backends without host callbacks). It changes nothing in the port: a
-# torch step reads the mmap HostRIRStore on the host directly
-# (data/reference.py). Kept so that the two config trees stay key for key.
+# for backends without host callbacks). A torch step reads the mmap
+# HostRIRStore on the host directly (data/reference.py), so the audio path
+# ignores it; "on" with host-served RIRs is where SPEAKER.BANK_MODE cached
+# is allowed, as in JAX (dialog/instruction_source.py).
 _C.TPU.HOST_PREFETCH = "auto"
 # fused SMT-encode Pallas kernel (ops/pallas_smt.py): "auto" engages it on
 # TPU backends (the Mosaic kernel), "on" forces it everywhere (interpreter

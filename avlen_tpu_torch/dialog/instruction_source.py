@@ -14,11 +14,15 @@ and tokenizes its text with CLIP (ppo_trainer.py:560-561). Two sources:
   JAX package needs ``io_callback`` inside its scan).
 
 ``resolve_instruction_source`` chooses from SPEAKER.BANK_MODE (auto, bank,
-callback) and SPEAKER.MAX_BANK_NODES. The JAX package's ``cached`` mode (the
-chunked prefetch for backends without host callbacks) is ROADMAP Queue 1
-item 4. ``speaker_from_config`` serves the template or the neural speaker
-(SPEAKER.BACKEND, SPEAKER.CKPT_PATH), with the panorama features under
-SPEAKER.USE_PANO_FEATURES.
+callback, cached) and SPEAKER.MAX_BANK_NODES. The JAX package serves
+``cached`` through a chunked prefetch cache of the host speaker's tokens,
+for backends without host callbacks, and only where its env has a host
+prefetcher (``has_host_prefetcher``); the cache is a transport, its tokens
+are the host speaker's. The port's eager rollout calls the host speaker
+directly, so ``cached`` is the callback source there, and raises JAX's
+error elsewhere. ``speaker_from_config`` serves the template or the neural
+speaker (SPEAKER.BACKEND, SPEAKER.CKPT_PATH), with the panorama features
+under SPEAKER.USE_PANO_FEATURES.
 """
 
 from __future__ import annotations
@@ -137,28 +141,42 @@ class HostSpeakerInstructionSource:
         return torch.from_numpy(self.host_tokens(*host)).to(newly.device)
 
 
-def resolve_instruction_source(cfg, tables_list, rgb_bank=None, device: Union[str, torch.device] = "cuda"
-                               ) -> Tuple[Optional[np.ndarray], Optional[object]]:
+def has_host_prefetcher(cfg, env) -> bool:
+    """Whether the JAX package's builder would give ``env`` its host RIR
+    prefetcher (``avlen_tpu/sim/builder.py:303-320``), the condition under
+    which its trainer allows BANK_MODE cached: RIRs served from the host
+    store, and TPU.HOST_PREFETCH on (auto engages it only on a backend
+    without host callbacks, and CUDA has them)."""
+    from avlen_tpu_torch.data.reference import HostRIRStore
+
+    return isinstance(env.bank.rir, HostRIRStore) and cfg.TPU.HOST_PREFETCH == "on"
+
+
+def resolve_instruction_source(cfg, tables_list, rgb_bank=None, device: Union[str, torch.device] = "cuda",
+                               allow_cached: bool = False) -> Tuple[Optional[np.ndarray], Optional[object]]:
     """(bank, source): exactly one is not None. BANK_MODE auto banks worlds
     whose scenes all have at most MAX_BANK_NODES nodes and calls the host
-    speaker otherwise; bank and callback force one. The speaker runs on
-    ``device``."""
+    speaker otherwise; bank and callback force one; cached, allowed only
+    with ``allow_cached`` (``has_host_prefetcher``), calls the host speaker
+    (the tokens of JAX's prefetch cache). The speaker runs on ``device``."""
     mode = cfg.SPEAKER.BANK_MODE
-    if mode == "cached":
-        raise NotImplementedError(
-            "SPEAKER.BANK_MODE 'cached': the chunked instruction prefetch is not ported "
-            "(ROADMAP Queue 1 item 4); the port's eager rollout calls the host speaker directly "
-            "(BANK_MODE callback)")
+    if mode == "cached" and not allow_cached:
+        raise RuntimeError(
+            "SPEAKER.BANK_MODE 'cached' serves instructions through the "
+            "chunked-rollout prefetch cache, which only chunk-aware trainers "
+            "on the host-prefetch audio path provide (TPU.HOST_PREFETCH + "
+            "savi/ddppo trainers). Use bank/callback/auto here."
+        )
     speaker = speaker_from_config(cfg, tables_list, rgb_bank=rgb_bank, device=device)
     n_max = max(t.num_nodes for t in tables_list)
     if mode == "auto":
         mode = "bank" if n_max <= cfg.SPEAKER.MAX_BANK_NODES else "callback"
     if mode == "bank":
         return build_instruction_bank(speaker, tables_list), None
-    if mode != "callback":
+    if mode not in ("callback", "cached"):
         raise ValueError(f"unknown SPEAKER.BANK_MODE {cfg.SPEAKER.BANK_MODE!r}")
-    logger.info(f"instructions from the host speaker per query (N={n_max} > "
-                f"MAX_BANK_NODES={cfg.SPEAKER.MAX_BANK_NODES} or BANK_MODE callback)")
+    logger.info(f"instructions from the host speaker per query (N={n_max}, MAX_BANK_NODES="
+                f"{cfg.SPEAKER.MAX_BANK_NODES}, BANK_MODE {cfg.SPEAKER.BANK_MODE})")
     return None, HostSpeakerInstructionSource(speaker, tables_list)
 
 

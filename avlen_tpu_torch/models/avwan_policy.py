@@ -5,7 +5,8 @@ av_wan/ppo/policy.py, AudioNavBaselinePolicy over MapCNN ⊕ AudioCNN → GRU,
 with av_wan/models/map_cnn.py): a categorical actor over the action map's
 cells whose invalid waypoints are masked to −1e9 (never −inf, so that no
 NaN enters the log-softmax), as CategoricalNetWithMask does
-(ss_baselines/common/utils.py:75-128), and a linear critic.
+(ss_baselines/common/utils.py:75-128), and a linear critic. The three CNNs
+compute at ``dtype``; the GRU and the heads are float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,11 +33,11 @@ class MapCNN(nn.Module):
     """3-conv encoder over a (size, size, channels) map (av_wan/models/map_cnn.py)."""
 
     def __init__(self, output_size: int, map_size: int, channels: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ConvEncoder_0 = ConvEncoder(channels, (map_size, map_size), output_size,
                                          kernels=[(4, 4), (3, 3), (3, 3)], strides=[(2, 2), (1, 1), (1, 1)],
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ConvEncoder_0(x)
@@ -53,12 +54,13 @@ class AVWanNet(nn.Module):
         am_size: int = 20,
         action_map_size: int = 9,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.hidden_size, self.action_map_size = hidden_size, action_map_size
-        self.audio_encoder = AudioCNN(hidden_size, spectrogram_hw, generator=generator)
-        self.gm_encoder = MapCNN(hidden_size, gm_size, 2, generator)
-        self.am_encoder = MapCNN(hidden_size, am_size, 1, generator)
+        self.audio_encoder = AudioCNN(hidden_size, spectrogram_hw, generator=generator, dtype=dtype)
+        self.gm_encoder = MapCNN(hidden_size, gm_size, 2, generator, dtype)
+        self.am_encoder = MapCNN(hidden_size, am_size, 1, generator, dtype)
         self.state_encoder = RNNStateEncoder(3 * hidden_size, hidden_size, generator=generator)
 
     def features(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:

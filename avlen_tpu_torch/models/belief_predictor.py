@@ -3,7 +3,8 @@
 PyTorch counterpart of ``avlen_tpu/models/belief_predictor.py`` (reference
 belief_predictor.py:56-230): ResNet-18 towers over the 2-channel
 spectrogram predicting a 21-way category belief and a 2-d relative goal
-location, fused across steps by an EMA in the odometry frame.
+location, fused across steps by an EMA in the odometry frame. Both
+towers compute at ``dtype`` (``models/resnet.py``); their heads are float32.
 """
 
 from __future__ import annotations
@@ -36,14 +37,14 @@ class BeliefPredictorNet(nn.Module):
 
     def __init__(self, num_categories: int = 21, predict_label: bool = True,
                  predict_location: bool = True, has_distractor_sound: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.has_distractor_sound = has_distractor_sound
         if predict_location:
             in_ch = 2 + (num_categories if has_distractor_sound else 0)
-            self.predictor = ResNet18(in_ch, 2, generator=generator)
+            self.predictor = ResNet18(in_ch, 2, generator=generator, dtype=dtype)
         if predict_label:
-            self.classifier = ResNet18(2, num_categories, generator=generator)
+            self.classifier = ResNet18(2, num_categories, generator=generator, dtype=dtype)
 
     def forward(self, spectrogram: torch.Tensor, category: Optional[torch.Tensor] = None):
         """spectrogram (B, F, T, 2); category (B, 21) one-hot for distractor

@@ -13,6 +13,11 @@ fills masked logits with ``finfo(float32).min``, as Flax's
 disk (none ship) the tower runs from its own random init, drawn from an
 explicit generator with Flax's initialisers; ``load_openai_weights`` maps a
 CLIP state dict onto the module when one is given.
+
+``dtype`` is the JAX module's: the embedded tokens are cast to it, the
+attention and MLP compute in it, the residual stream stays in it, while
+``ln1_i``/``ln2_i`` have no dtype and so return float32
+(``models/layers.py``); ``ln_final`` runs on a float32 cast.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn as nn
 
 from avlen_tpu_torch.models.clip_bpe import CONTEXT_LENGTH, VOCAB_SIZE, default_tokenizer
 from avlen_tpu_torch.models.init import lecun_normal_
+from avlen_tpu_torch.models.layers import LayerNorm, Linear
 
 SOT_TOKEN = 49406
 EOT_TOKEN = 49407
@@ -38,8 +44,9 @@ def tokenize(texts: Union[str, Sequence[str]], context_length: int = CONTEXT_LEN
     return default_tokenizer().tokenize(texts, context_length)
 
 
-def _dense(cin: int, cout: int, generator: Optional[torch.Generator]) -> nn.Linear:
-    layer = nn.Linear(cin, cout)
+def _dense(cin: int, cout: int, generator: Optional[torch.Generator],
+           dtype: torch.dtype = torch.float32) -> nn.Linear:
+    layer = Linear(cin, cout, dtype=dtype)
     lecun_normal_(layer.weight, cin, generator)
     nn.init.zeros_(layer.bias)
     return layer
@@ -49,20 +56,25 @@ class CLIPAttention(nn.Module):
     """Flax ``MultiHeadDotProductAttention``: query/key/value DenseGeneral
     (W → heads × W/heads) and out (heads × W/heads → W), as Linear layers."""
 
-    def __init__(self, width: int, heads: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, width: int, heads: int, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nhead = heads
-        self.query = _dense(width, width, generator)
-        self.key = _dense(width, width, generator)
-        self.value = _dense(width, width, generator)
-        self.out = _dense(width, width, generator)
+        self.query = _dense(width, width, generator, dtype)
+        self.key = _dense(width, width, generator, dtype)
+        self.value = _dense(width, width, generator, dtype)
+        self.out = _dense(width, width, generator, dtype)
+        # Flax scales the query by sqrt(head width) cast to the compute dtype
+        self.scale = math.sqrt(width // heads)
+        if dtype != torch.float32:
+            self.scale = float(torch.tensor(self.scale, dtype=dtype))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x (B, T, W), mask (T, T) bool, True = attend."""
         b, t, w = x.shape
         h = self.nhead
         dh = w // h
-        q = self.query(x).view(b, t, h, dh) / math.sqrt(dh)
+        q = self.query(x).view(b, t, h, dh) / self.scale
         k = self.key(x).view(b, t, h, dh)
         v = self.value(x).view(b, t, h, dh)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
@@ -81,9 +93,11 @@ class CLIPTextEncoder(nn.Module):
         heads: int = 8,
         embed_dim: int = 512,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.width, self.layers, self.heads, self.embed_dim = width, layers, heads, embed_dim
+        self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         with torch.no_grad():
             # Flax nn.Embed: variance_scaling(1, fan_in, normal), fan_in = width
@@ -91,12 +105,12 @@ class CLIPTextEncoder(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(context_length, width).normal_(0.0, 0.01, generator=generator))
         for i in range(layers):
-            setattr(self, f"ln1_{i}", nn.LayerNorm(width, eps=LN_EPS))
-            setattr(self, f"attn_{i}", CLIPAttention(width, heads, generator))
-            setattr(self, f"ln2_{i}", nn.LayerNorm(width, eps=LN_EPS))
-            setattr(self, f"mlp_fc_{i}", _dense(width, 4 * width, generator))
-            setattr(self, f"mlp_proj_{i}", _dense(4 * width, width, generator))
-        self.ln_final = nn.LayerNorm(width, eps=LN_EPS)
+            setattr(self, f"ln1_{i}", LayerNorm(width, eps=LN_EPS))
+            setattr(self, f"attn_{i}", CLIPAttention(width, heads, generator, dtype))
+            setattr(self, f"ln2_{i}", LayerNorm(width, eps=LN_EPS))
+            setattr(self, f"mlp_fc_{i}", _dense(width, 4 * width, generator, dtype))
+            setattr(self, f"mlp_proj_{i}", _dense(4 * width, width, generator, dtype))
+        self.ln_final = LayerNorm(width, eps=LN_EPS)
         self.text_projection = nn.Parameter(
             torch.empty(width, embed_dim).normal_(0.0, 0.02, generator=generator))
 
@@ -104,14 +118,14 @@ class CLIPTextEncoder(nn.Module):
         """tokens (B, T) ints → (B, embed_dim) text features."""
         tokens = tokens.long()
         t = tokens.shape[1]
-        x = self.token_embedding(tokens) + self.positional_embedding[None, :t]
+        x = (self.token_embedding(tokens) + self.positional_embedding[None, :t]).to(self.dtype)
         causal = torch.ones((t, t), dtype=torch.bool, device=tokens.device).tril()
         for i in range(self.layers):
             x = x + getattr(self, f"attn_{i}")(getattr(self, f"ln1_{i}")(x), causal)
             y = getattr(self, f"mlp_fc_{i}")(getattr(self, f"ln2_{i}")(x))
             y = y * torch.sigmoid(1.702 * y)  # QuickGELU
             x = x + getattr(self, f"mlp_proj_{i}")(y)
-        x = self.ln_final(x)
+        x = self.ln_final(x.float())
         eot = tokens.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection

@@ -8,7 +8,10 @@ CLIP dialog embedding and fused to d_model, offset by the sinusoidal
 encoding of the agent's dialog-window step, through one encoder and one
 decoder layer whose query is the belief vector. The JAX package runs these
 layers plain, not through its fused SMT kernel, and so does the port: the
-plain layers of ``ops/smt_cuda.py`` on either device.
+plain layers of ``ops/smt_cuda.py`` on either device. ``dtype`` is the JAX
+module's: the fusion Linears and both layers compute in it (the float32
+positional table promotes the fused entries back to float32 before the
+encoder, as in JAX), and the result is cast to float32.
 """
 
 from __future__ import annotations
@@ -44,12 +47,14 @@ class DialogStateEncoder(nn.Module):
         num_decoder_layers: int = 1,
         max_len: int = 100,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.d_model, self.nhead, self.max_len = d_model, nhead, max_len
         self.num_encoder_layers, self.num_decoder_layers = num_encoder_layers, num_decoder_layers
-        self.fusion0 = linear(state_size + dialog_emb_size, d_model, generator)
-        self.fusion1 = linear(d_model, d_model, generator)
+        self.dtype = dtype
+        self.fusion0 = linear(state_size + dialog_emb_size, d_model, generator, dtype)
+        self.fusion1 = linear(d_model, d_model, generator, dtype)
         for i in range(num_encoder_layers):
             setattr(self, f"enc{i}", TransformerEncoderLayer(d_model, d_model, generator))
         for i in range(num_decoder_layers):
@@ -69,8 +74,8 @@ class DialogStateEncoder(nn.Module):
         h = h + self.pe[torch.clamp(agent_step.long(), 0, self.max_len - 1)][:, None, :]
         p = dict(self.named_parameters())
         for i in range(self.num_encoder_layers):
-            h = enc_layer_plain(p, f"enc{i}", self.nhead, h, valid)
+            h = enc_layer_plain(p, f"enc{i}", self.nhead, h, valid, self.dtype)
         tgt = goal[:, None, :]
         for i in range(self.num_decoder_layers):
-            tgt = dec_layer_plain(p, f"dec{i}", self.nhead, tgt, h, valid)
+            tgt = dec_layer_plain(p, f"dec{i}", self.nhead, tgt, h, valid, self.dtype)
         return tgt[:, 0, :].float()

@@ -6,7 +6,8 @@ AudioNavDialogPolicy / AudioNavDialogNet, ss_baselines/savi/ppo/policy.py:
 oracle instruction embedded by the frozen CLIP text tower, projected by
 ``dialog_layer``, and a second transformer (``DialogStateEncoder``) over
 the short memory of SMT states within the window. Submodule names follow
-the Flax tree.
+the Flax tree. ``dtype`` goes into the SMT net, CLIP and the dialog
+encoder; ``dialog_layer`` and the heads are float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ class AudioNavDialogNet(nn.Module):
         clip_layers: int = 12,
         num_categories: int = 21,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_actions, self.d_model = num_actions, d_model
@@ -53,12 +55,13 @@ class AudioNavDialogNet(nn.Module):
             spectrogram_hw=spectrogram_hw, num_actions=num_actions, d_model=d_model, nhead=nhead,
             use_rgb=use_rgb, use_depth=use_depth, use_belief_as_goal=use_belief_as_goal,
             use_label_belief=use_label_belief, use_location_belief=use_location_belief,
-            pretraining=pretraining, num_categories=num_categories, generator=generator,
+            pretraining=pretraining, num_categories=num_categories, generator=generator, dtype=dtype,
         )
-        self.clip = CLIPTextEncoder(width=clip_width, layers=clip_layers, generator=generator)
+        self.clip = CLIPTextEncoder(width=clip_width, layers=clip_layers, generator=generator, dtype=dtype)
         self.dialog_layer = linear(self.clip.embed_dim, d_model, generator)
         self.dialog_state_encoder = DialogStateEncoder(
-            state_size=d_model, dialog_emb_size=d_model, d_model=d_model, nhead=nhead, generator=generator)
+            state_size=d_model, dialog_emb_size=d_model, d_model=d_model, nhead=nhead, generator=generator,
+            dtype=dtype)
 
     @property
     def feature_size(self) -> int:

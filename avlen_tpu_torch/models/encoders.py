@@ -6,6 +6,9 @@ Linear → ReLU. Inputs are NHWC; the flatten runs in NHWC order, as Flax's does
 carried weights line up. Kernels are clamped to the running spatial dims
 (so tiny test inputs never collapse to size 0), which fixes the layer
 shapes at construction from ``input_hw``.
+
+``dtype`` is the JAX module's: the convolutions and the Linear compute in
+it, and the ReLU'd embedding is cast to float32 (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from avlen_tpu_torch.models.init import kaiming_normal_, linear, zeros_
+from avlen_tpu_torch.models.layers import Conv2d
 
 
 class ConvEncoder(nn.Module):
@@ -25,20 +29,20 @@ class ConvEncoder(nn.Module):
     def __init__(self, in_channels: int, input_hw: Tuple[int, int], output_size: int,
                  kernels: Sequence[Tuple[int, int]], strides: Sequence[Tuple[int, int]],
                  channels: Sequence[int] = (32, 64, 64),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = input_hw
         cin = in_channels
         self.num_convs = len(kernels)
         for i, (k, s, c) in enumerate(zip(kernels, strides, channels)):
             k = (min(k[0], h), min(k[1], w))
-            conv = nn.Conv2d(cin, c, k, s)
+            conv = Conv2d(cin, c, k, s, dtype=dtype)
             kaiming_normal_(conv.weight, generator)
             zeros_(conv.bias)
             setattr(self, f"Conv_{i}", conv)
             h, w = (h - k[0]) // s[0] + 1, (w - k[1]) // s[1] + 1
             cin = c
-        self.Dense_0 = linear(cin * h * w, output_size, generator)
+        self.Dense_0 = linear(cin * h * w, output_size, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float().permute(0, 3, 1, 2)
@@ -47,7 +51,7 @@ class ConvEncoder(nn.Module):
             if i < self.num_convs - 1:
                 x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
-        return F.relu(self.Dense_0(x))
+        return F.relu(self.Dense_0(x)).float()
 
 
 class AudioCNN(nn.Module):
@@ -55,7 +59,7 @@ class AudioCNN(nn.Module):
     spectrogram hits this)."""
 
     def __init__(self, output_size: int, input_hw: Tuple[int, int], in_channels: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         h, w = input_hw
         if h < 30 or w < 30:
@@ -63,7 +67,7 @@ class AudioCNN(nn.Module):
         else:
             kernels, strides = [(8, 8), (4, 4), (3, 3)], [(4, 4), (2, 2), (1, 1)]
         self.ConvEncoder_0 = ConvEncoder(in_channels, input_hw, output_size, kernels, strides,
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
 
     def forward(self, spectrogram: torch.Tensor) -> torch.Tensor:
         return self.ConvEncoder_0(spectrogram)
@@ -75,7 +79,8 @@ class VisualCNN(nn.Module):
     else kernels 8/4/3 with strides 4/2/2."""
 
     def __init__(self, output_size: int, input_hw: Tuple[int, int], use_rgb: bool = False,
-                 use_depth: bool = True, generator: Optional[torch.Generator] = None):
+                 use_depth: bool = True, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         assert use_rgb or use_depth, "VisualCNN requires rgb and/or depth"
         self.use_rgb, self.use_depth = use_rgb, use_depth
@@ -85,7 +90,7 @@ class VisualCNN(nn.Module):
             kernels, strides = [(8, 8), (4, 4), (3, 3)], [(4, 4), (2, 2), (2, 2)]
         channels = 3 * int(use_rgb) + int(use_depth)
         self.ConvEncoder_0 = ConvEncoder(channels, input_hw, output_size, kernels, strides,
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
 
     def forward(self, rgb: Optional[torch.Tensor] = None, depth: Optional[torch.Tensor] = None) -> torch.Tensor:
         parts = []

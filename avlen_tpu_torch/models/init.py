@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from avlen_tpu_torch.models.layers import Linear
+
 # std of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
@@ -47,9 +49,10 @@ def zeros_(w: torch.Tensor) -> torch.Tensor:
     return w.zero_()
 
 
-def linear(cin: int, cout: int, generator: Optional[torch.Generator] = None) -> torch.nn.Linear:
-    """Flax Dense(kernel_init=kaiming_normal()) with zero bias."""
-    layer = torch.nn.Linear(cin, cout)
+def linear(cin: int, cout: int, generator: Optional[torch.Generator] = None,
+           dtype: Optional[torch.dtype] = None) -> torch.nn.Linear:
+    """Flax Dense(kernel_init=kaiming_normal(), dtype=dtype) with zero bias."""
+    layer = Linear(cin, cout, dtype=dtype)
     kaiming_normal_(layer.weight, generator)
     zeros_(layer.bias)
     return layer

@@ -8,7 +8,9 @@ the pose at (272, 276); so the SMT's entries are 320 wide once the pose is
 re-encoded to 16. The memory entry stores concat(features,
 last_query_info) (policy.py:1062-1065). Heads: the 2-action option
 distribution, the critic and the 2-class ``uncertainty`` head
-(CriticHead2, savi/ppo/policy.py:46-61).
+(CriticHead2, savi/ppo/policy.py:46-61). ``dtype`` goes into the audio,
+visual and SMT encoders; the action encoder and the three heads are
+float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ class AudioNavOptionNet(nn.Module):
         pretraining: bool = False,
         num_categories: int = 21,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_actions, self.d_model = num_actions, d_model
@@ -56,12 +59,12 @@ class AudioNavOptionNet(nn.Module):
         self.use_label_belief, self.use_location_belief = use_label_belief, use_location_belief
         self.query_count_emb_size = query_count_emb_size
         self.num_categories = num_categories
-        self.goal_encoder = AudioCNN(128, spectrogram_hw, generator=generator)
-        self.visual_encoder = SMTCNN(use_rgb=use_rgb, use_depth=use_depth, generator=generator)
+        self.goal_encoder = AudioCNN(128, spectrogram_hw, generator=generator, dtype=dtype)
+        self.visual_encoder = SMTCNN(use_rgb=use_rgb, use_depth=use_depth, generator=generator, dtype=dtype)
         self.action_encoder = linear(num_actions, 16, generator)
         self.smt = SMTStateEncoder(
             input_size=self.feature_size, d_model=d_model, nhead=nhead,
-            pose_indices=self.pose_indices, pretraining=pretraining, generator=generator,
+            pose_indices=self.pose_indices, pretraining=pretraining, generator=generator, dtype=dtype,
         )
 
     @property

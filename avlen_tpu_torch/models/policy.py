@@ -60,7 +60,8 @@ class AudioNavBaselineNet(nn.Module):
     """Spectrogram CNN ⊕ visual CNN → GRU (av_nav/ppo/policy.py:136-212).
     ``visual_hw`` is the frames' (H, W), which fixes the visual tower's
     layer shapes; with neither ``use_rgb`` nor ``use_depth`` there is no
-    visual tower (as in the JAX package) and ``visual_hw`` is not read."""
+    visual tower (as in the JAX package) and ``visual_hw`` is not read.
+    The CNNs compute at ``dtype``; the GRU and the heads are float32."""
 
     def __init__(
         self,
@@ -70,13 +71,15 @@ class AudioNavBaselineNet(nn.Module):
         use_rgb: bool = False,
         use_depth: bool = True,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.hidden_size = hidden_size
         self.use_visual = use_rgb or use_depth
-        self.audio_encoder = AudioCNN(hidden_size, spectrogram_hw, generator=generator)
+        self.audio_encoder = AudioCNN(hidden_size, spectrogram_hw, generator=generator, dtype=dtype)
         if self.use_visual:
-            self.visual_encoder = VisualCNN(hidden_size, visual_hw, use_rgb, use_depth, generator=generator)
+            self.visual_encoder = VisualCNN(hidden_size, visual_hw, use_rgb, use_depth, generator=generator,
+                                            dtype=dtype)
         rnn_input = (2 if self.use_visual else 1) * hidden_size
         self.state_encoder = RNNStateEncoder(rnn_input, hidden_size, generator=generator)
 

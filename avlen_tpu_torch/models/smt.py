@@ -12,6 +12,12 @@ With one encoder and one decoder layer (every config of the repo) the
 transformer runs as ``ops/smt_cuda.smt_encode``: the hand-written kernel on
 a CUDA device, its plain version on the CPU. Other layer counts run the
 plain layers. Submodule names follow the Flax parameter tree.
+
+``dtype`` is the JAX module's. The kernel computes in float32 at every
+precision, on float32 entries and goal, as JAX's fused path
+(``avlen_tpu/models/smt.py:152-169``) does: a lower precision reaches it
+only through the towers' rounded features. The plain layers of other layer
+counts compute at ``dtype`` and return float32, as JAX's non-fused layers.
 """
 
 from __future__ import annotations
@@ -94,9 +100,10 @@ class SMTStateEncoder(nn.Module):
         pose_indices: Optional[Tuple[int, int]] = None,
         pretraining: bool = False,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.d_model, self.nhead = d_model, nhead
+        self.d_model, self.nhead, self.dtype = d_model, nhead, dtype
         self.num_encoder_layers, self.num_decoder_layers = num_encoder_layers, num_decoder_layers
         self.pose_indices = pose_indices
         self.pretraining = pretraining
@@ -139,4 +146,4 @@ class SMTStateEncoder(nn.Module):
         if self.num_encoder_layers == 1 and self.num_decoder_layers == 1:
             return smt_encode(params, entries.float(), valid.float(), goal, self.nhead)
         return smt_encode_plain(params, entries, valid, goal, self.nhead,
-                                self.num_encoder_layers, self.num_decoder_layers)
+                                self.num_encoder_layers, self.num_decoder_layers, self.dtype)

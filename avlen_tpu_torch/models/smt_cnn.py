@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``avlen_tpu/models/smt_cnn.py`` (reference
 smt_cnn.py:19-130): per-modality towers over 64×64 centre-cropped frames,
-each projected to a 64-d embedding, concatenated.
+each projected to a 64-d embedding, concatenated. The frames are cast to
+float32 before the towers, which compute at ``dtype`` (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -25,14 +26,15 @@ def center_crop(x: torch.Tensor, size: int = 64) -> torch.Tensor:
 
 class SMTCNN(nn.Module):
     def __init__(self, use_rgb: bool = True, use_depth: bool = True, embedding_size: int = 64,
-                 crop_size: int = 64, generator: Optional[torch.Generator] = None):
+                 crop_size: int = 64, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_rgb, self.use_depth, self.crop_size = use_rgb, use_depth, crop_size
         self.feature_dims = embedding_size * (int(use_rgb) + int(use_depth))
         if use_rgb:
-            self.rgb_tower = ResNet18(3, embedding_size, generator=generator)
+            self.rgb_tower = ResNet18(3, embedding_size, generator=generator, dtype=dtype)
         if use_depth:
-            self.depth_tower = ResNet18(1, embedding_size, generator=generator)
+            self.depth_tower = ResNet18(1, embedding_size, generator=generator, dtype=dtype)
 
     def forward(self, rgb: Optional[torch.Tensor] = None, depth: Optional[torch.Tensor] = None) -> torch.Tensor:
         outs = []

@@ -6,6 +6,8 @@ SMTCNN(rgb, depth) 128 ⊕ action embedding 16 ⊕ AudioCNN(spectrogram) 128 ⊕
 pose 4 = 276-d, attended by the Scene Memory Transformer whose decoder query
 is the belief vector (category belief in [:21], location belief in [21:23]
 of a d_model-zero vector), with categorical actor and critic heads.
+``dtype`` goes into the audio, visual and SMT encoders; the action encoder
+and the heads are float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ class AudioNavSMTNet(nn.Module):
         pretraining: bool = False,
         num_categories: int = 21,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_actions, self.d_model = num_actions, d_model
@@ -55,9 +58,9 @@ class AudioNavSMTNet(nn.Module):
         self.normalize_category_distribution = normalize_category_distribution
         self.use_category_input = use_category_input
         self.num_categories = num_categories
-        self.goal_encoder = AudioCNN(128, spectrogram_hw, generator=generator)
+        self.goal_encoder = AudioCNN(128, spectrogram_hw, generator=generator, dtype=dtype)
         if use_rgb or use_depth:
-            self.visual_encoder = SMTCNN(use_rgb=use_rgb, use_depth=use_depth, generator=generator)
+            self.visual_encoder = SMTCNN(use_rgb=use_rgb, use_depth=use_depth, generator=generator, dtype=dtype)
         self.action_encoder = linear(num_actions, 16, generator)
         self.smt = SMTStateEncoder(
             input_size=self.feature_size,
@@ -66,6 +69,7 @@ class AudioNavSMTNet(nn.Module):
             pose_indices=self.pose_indices,
             pretraining=pretraining,
             generator=generator,
+            dtype=dtype,
         )
 
     @property

@@ -70,45 +70,64 @@ KERNEL_WEIGHTS = (
 # ---------------------------------------------------------------------------
 
 
-def _ln(p, name, x):
-    return F.layer_norm(x, x.shape[-1:], p[f"{name}.weight"], p[f"{name}.bias"], eps=LN_EPS)
+# An optional 16-bit ``dtype`` runs a layer as the JAX package's non-fused
+# layers at TPU.PRECISION (``avlen_tpu/models/smt.py``): each projection
+# casts its input and weights to it, each LayerNorm computes in float32 and
+# returns it. None or float32 is the kernel's float32 mirror, untouched.
 
 
-def _dense(p, name, x):
-    return F.linear(x, p[f"{name}.weight"], p[f"{name}.bias"])
+def _low(dtype) -> bool:
+    return dtype is not None and dtype != torch.float32
 
 
-def mha_plain(p: Mapping[str, torch.Tensor], name: str, nhead: int, q, k, v, key_valid):
+def _ln(p, name, x, dtype=None):
+    if not _low(dtype):
+        return F.layer_norm(x, x.shape[-1:], p[f"{name}.weight"], p[f"{name}.bias"], eps=LN_EPS)
+    return F.layer_norm(x.float(), x.shape[-1:], p[f"{name}.weight"], p[f"{name}.bias"], eps=LN_EPS).to(dtype)
+
+
+def _dense(p, name, x, dtype=None):
+    w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+    if _low(dtype):
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    return F.linear(x, w, b)
+
+
+def mha_plain(p: Mapping[str, torch.Tensor], name: str, nhead: int, q, k, v, key_valid, dtype=None):
     """Masked multi-head attention: q (B, Lq, D), k/v (B, Lk, D), key_valid
     (B, Lk) nonzero = attendable; masked keys add -1e9, never -inf."""
     b, lq, d = q.shape
     dh = d // nhead
-    qh = _dense(p, f"{name}.q", q).view(b, lq, nhead, dh)
-    kh = _dense(p, f"{name}.k", k).view(b, k.shape[1], nhead, dh)
-    vh = _dense(p, f"{name}.v", v).view(b, v.shape[1], nhead, dh)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(dh)
+    qh = _dense(p, f"{name}.q", q, dtype).view(b, lq, nhead, dh)
+    kh = _dense(p, f"{name}.k", k, dtype).view(b, k.shape[1], nhead, dh)
+    vh = _dense(p, f"{name}.v", v, dtype).view(b, v.shape[1], nhead, dh)
+    scale = math.sqrt(dh)
+    if _low(dtype):  # JAX divides by sqrt(d_head) cast to the logits' dtype
+        scale = float(torch.tensor(scale, dtype=dtype))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / scale
     logits = logits + torch.where(key_valid[:, None, None, :] != 0, 0.0, NEG_INF).to(logits.dtype)
     attn = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(b, lq, nhead * dh)
-    return _dense(p, f"{name}.out", out)
+    return _dense(p, f"{name}.out", out, dtype)
 
 
-def enc_layer_plain(p, name: str, nhead: int, src, valid):
-    a = mha_plain(p, f"{name}.MultiHeadAttention_0", nhead, src, src, src, valid)
-    src = _ln(p, f"{name}.LayerNorm_0", src + a)
-    f = _dense(p, f"{name}.Dense_1", torch.relu(_dense(p, f"{name}.Dense_0", src)))
-    return _ln(p, f"{name}.LayerNorm_1", src + f)
+def enc_layer_plain(p, name: str, nhead: int, src, valid, dtype=None):
+    a = mha_plain(p, f"{name}.MultiHeadAttention_0", nhead, src, src, src, valid, dtype)
+    src = _ln(p, f"{name}.LayerNorm_0", src + a, dtype)
+    f = _dense(p, f"{name}.Dense_1", torch.relu(_dense(p, f"{name}.Dense_0", src, dtype)), dtype)
+    return _ln(p, f"{name}.LayerNorm_1", src + f, dtype)
 
 
-def dec_layer_plain(p, name: str, nhead: int, tgt, mem, valid):
-    # the single query's self-attention has one key: softmax is exactly 1,
-    # so it is out(v(tgt)) and its q/k projections get no gradient
-    a = _dense(p, f"{name}.self_attn.out", _dense(p, f"{name}.self_attn.v", tgt))
-    tgt = _ln(p, f"{name}.LayerNorm_0", tgt + a)
-    a = mha_plain(p, f"{name}.cross_attn", nhead, tgt, mem, mem, valid)
-    tgt = _ln(p, f"{name}.LayerNorm_1", tgt + a)
-    f = _dense(p, f"{name}.Dense_1", torch.relu(_dense(p, f"{name}.Dense_0", tgt)))
-    return _ln(p, f"{name}.LayerNorm_2", tgt + f)
+def dec_layer_plain(p, name: str, nhead: int, tgt, mem, valid, dtype=None):
+    # the single query's self-attention has one key: softmax is exactly 1
+    # (in any dtype), so it is out(v(tgt)) and its q/k projections get no
+    # gradient
+    a = _dense(p, f"{name}.self_attn.out", _dense(p, f"{name}.self_attn.v", tgt, dtype), dtype)
+    tgt = _ln(p, f"{name}.LayerNorm_0", tgt + a, dtype)
+    a = mha_plain(p, f"{name}.cross_attn", nhead, tgt, mem, mem, valid, dtype)
+    tgt = _ln(p, f"{name}.LayerNorm_1", tgt + a, dtype)
+    f = _dense(p, f"{name}.Dense_1", torch.relu(_dense(p, f"{name}.Dense_0", tgt, dtype)), dtype)
+    return _ln(p, f"{name}.LayerNorm_2", tgt + f, dtype)
 
 
 def smt_encode_plain(
@@ -119,13 +138,14 @@ def smt_encode_plain(
     nhead: int,
     num_encoder_layers: int = 1,
     num_decoder_layers: int = 1,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    h = _dense(p, "fusion1", torch.relu(_dense(p, "fusion0", entries)))
+    h = _dense(p, "fusion1", torch.relu(_dense(p, "fusion0", entries, dtype)), dtype)
     for i in range(num_encoder_layers):
-        h = enc_layer_plain(p, f"enc{i}", nhead, h, valid)
+        h = enc_layer_plain(p, f"enc{i}", nhead, h, valid, dtype)
     tgt = goal[:, None, :] if goal is not None else h[:, -1:, :]
     for i in range(num_decoder_layers):
-        tgt = dec_layer_plain(p, f"dec{i}", nhead, tgt, h, valid)
+        tgt = dec_layer_plain(p, f"dec{i}", nhead, tgt, h, valid, dtype)
     return tgt[:, 0, :].float()
 
 

@@ -79,9 +79,11 @@ def evaluate_option_sequence_batched(
     actions_option: torch.Tensor,
     initial_memory: SMTMemory,
     chunk: int = 15,
+    compute_dtype: Optional[torch.dtype] = None,
 ):
     """``evaluate_option_sequence``, ``chunk`` steps a call
-    (``batched_ring_eval``): the same ring views, the same outputs."""
+    (``batched_ring_eval``, its pool cast to ``compute_dtype``): the same
+    ring views, the same outputs at float32."""
     sensor_obs, prev_actions = _split_obs(traj_obs)
 
     def eval_fn(inp, views):
@@ -95,6 +97,7 @@ def evaluate_option_sequence_batched(
         (sensor_obs, prev_actions, query_state, last_query_info, actions_option),
         [(initial_memory, feat_option, masks)],
         chunk=chunk,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -109,12 +112,14 @@ def ppo_update_interactive(
     generator: Optional[torch.Generator] = None,
     perms: Optional[Sequence] = None,
     batched_chunk: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
     """One π_q PPO update in place on the optimizer's parameters. Each epoch
     draws a permutation of the B env slots from ``generator`` (a CPU
     generator) or takes ``perms[epoch]``, cut into ``min(num_mini_batch, B)``
-    minibatches. ``batched_chunk`` > 0 re-evaluates that many steps a call.
-    Returns value_loss, action_loss, entropy and unct_loss averaged over the
+    minibatches. ``batched_chunk`` > 0 re-evaluates that many steps a call,
+    the ring views' pool cast to ``compute_dtype`` (TPU.PRECISION). Returns
+    value_loss, action_loss, entropy and unct_loss averaged over the
     optimizer steps, as tensors."""
     b = traj["actions_option"].shape[1]
     num_mb = min(config.num_mini_batch, b)
@@ -127,7 +132,8 @@ def ppo_update_interactive(
 
     if batched_chunk > 0:
         def eval_seq(*args):
-            return evaluate_option_sequence_batched(evaluate_step, *args, chunk=batched_chunk)
+            return evaluate_option_sequence_batched(evaluate_step, *args, chunk=batched_chunk,
+                                                    compute_dtype=compute_dtype)
     else:
         def eval_seq(*args):
             return evaluate_option_sequence(evaluate_step, *args)
@@ -224,9 +230,11 @@ def evaluate_dialog_sequence_batched(
     initial_mem_vln_dialog: SMTMemory,
     chunk: int = 15,
     dialog_clip: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """``evaluate_dialog_sequence``, ``chunk`` steps a call: both ring
-    memories' views gathered (``batched_ring_eval``)."""
+    memories' views gathered (``batched_ring_eval``, the pools cast to
+    ``compute_dtype``)."""
     sensor_obs, prev_actions = _split_obs(traj_obs)
     dialog_clip = _dialog_clip(dialog_clip)
 
@@ -240,6 +248,7 @@ def evaluate_dialog_sequence_batched(
         (sensor_obs, prev_actions, dialog, dialog_clip, agent_step, actions),
         [(initial_mem_vln, feat_vln, masks_vln), (initial_mem_vln_dialog, feat_vln_dialog, masks_vln)],
         chunk=chunk,
+        compute_dtype=compute_dtype,
     )
     return logits
 
@@ -263,6 +272,7 @@ def dialog_supervised_update(
     traj: Dict,
     replay_only: bool = True,
     batched_chunk: int = 0,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """One optimizer step of π_l's class-weighted CE against the oracle
     actions over the whole trajectory (update_dialog, savi/ppo/ppo.py:
@@ -272,7 +282,8 @@ def dialog_supervised_update(
             traj["masks_vln"], traj["o_action"], traj["initial_memories"][2], traj["initial_memories"][3])
     if batched_chunk > 0:
         logits = evaluate_dialog_sequence_batched(evaluate_step, *args, chunk=batched_chunk,
-                                                  dialog_clip=traj.get("dialog_clip"))
+                                                  dialog_clip=traj.get("dialog_clip"),
+                                                  compute_dtype=compute_dtype)
     else:
         logits = evaluate_dialog_sequence(evaluate_step, *args, dialog_clip=traj.get("dialog_clip"))
     loss = dialog_loss(logits, traj, replay_only)

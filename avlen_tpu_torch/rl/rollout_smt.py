@@ -172,12 +172,17 @@ def batched_ring_eval(
     inputs,  # tensors (T, B, ...) in nested dicts/tuples, passed flattened to eval_fn
     memories: Sequence,  # (initial SMTMemory, features_seq (T,B,F), masks_seq (T,B)) each
     chunk: int = 15,
+    compute_dtype: Optional[torch.dtype] = None,
 ):
     """T-parallel ring-replay evaluation: each step's memory views are
     gathered from the stored features (reconstruct_memory_views) and
     ``eval_fn`` runs on (chunk·B)-row batches instead of T steps of B rows.
     ``chunk`` falls to the largest divisor of T not above it. Several ring
     memories are supported (the AVLEN interactive policies carry two).
+    ``compute_dtype`` (TPU.PRECISION) casts the feature pools, as JAX does
+    (``avlen_tpu/rl/rollout_smt.py:190-191``): the views then reach the SMT
+    rounded to it and cast back to float32 at the kernel, so at bfloat16 the
+    first epoch's PPO ratio is not exactly 1, in JAX as here.
     Returns eval_fn's outputs (a tuple) reshaped to (T, B, ...)."""
     t_len, b = _first_leaf(inputs).shape[:2]
     chunk = ring_eval_chunk(chunk, t_len)
@@ -186,6 +191,8 @@ def batched_ring_eval(
     for mem0, feats, masks in memories:
         content_idx, valid = reconstruct_memory_views(mem0, feats, masks)
         pool = torch.cat([feats, mem0.features.transpose(0, 1), torch.zeros_like(feats[:1])], dim=0)
+        if compute_dtype is not None:
+            pool = pool.to(compute_dtype)
         plans.append((pool, content_idx, valid))
     env_ids = torch.arange(b, device=_first_leaf(inputs).device)[None, :, None]  # (1, B, 1)
 
@@ -218,9 +225,11 @@ def evaluate_sequence_smt_batched(
     masks_seq: torch.Tensor,  # (T, Bm)
     actions_seq: torch.Tensor,  # (T, Bm)
     chunk: int = 15,
+    compute_dtype: Optional[torch.dtype] = None,
 ):
     """evaluate_sequence_smt, T-parallel (batched_ring_eval): the same
-    per-step memory views as the sequential replay, the same outputs."""
+    per-step memory views as the sequential replay, the same outputs (at
+    float32; ``compute_dtype`` casts the views' pool)."""
 
     def eval_fn(inp, views):
         obs_f, pa_f, a_f = inp
@@ -233,6 +242,7 @@ def evaluate_sequence_smt_batched(
         (_sensor_obs(obs_seq), obs_seq["__prev_action"], actions_seq),
         [(initial_memory, obs_seq["__feature"], masks_seq)],
         chunk=chunk,
+        compute_dtype=compute_dtype,
     )
 
 

@@ -10,9 +10,11 @@ The rollout is the eager ``collect_rollout`` and the update the eager
 ``ppo_update`` (the JAX package jits each). Checkpoints hold the policy as
 the Flax tree the JAX package holds; the optimizer state is the port's own.
 
-Not ported, and refused: ``TPU.PRECISION`` other than float32. The port
-trains on one device, so the JAX trainer's device-mesh branch has no
-counterpart; the chunked host-prefetch audio path raises in the builder.
+``TPU.PRECISION`` is the CNNs' compute dtype (``compute_dtype``), as in
+JAX; the GRU and the heads stay float32. The port trains on one device, so
+the JAX trainer's device-mesh branch has no counterpart; a torch step reads
+host-served RIRs directly, so the chunked host-prefetch audio path has none
+either.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     eval_episode_accounting,
     eval_pass,
     exact_once_deal,
-    refuse_precision,
 )
 from avlen_tpu_torch.sim.builder import construct_batched_env
 from avlen_tpu_torch.utils import preemption
@@ -59,13 +60,14 @@ class AVNavTrainer(BaseRLTrainer):
         bank's render among it)."""
         t0 = time.perf_counter()
         cfg = self.config
-        refuse_precision(cfg)
+        dtype = self.compute_dtype()
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         self.env = self._make_env(num_envs)
         self._sync()
         self.bank_seconds = time.perf_counter() - t0
-        self.policy = self._make_policy(torch.Generator(device="cpu").manual_seed(cfg.SEED)).to(self.device)
+        gen = torch.Generator(device="cpu").manual_seed(cfg.SEED)
+        self.policy = self._make_policy(gen, dtype).to(self.device)
         self.optimizer = make_optimizer(self.policy.parameters(), self.ppo_cfg)
         self.sample_generator = torch.Generator(device=self.device).manual_seed(cfg.SEED)
         # the minibatch permutations (the JAX trainer's PRNGKey(SEED + 1))
@@ -79,8 +81,9 @@ class AVNavTrainer(BaseRLTrainer):
         return construct_batched_env(cfg, num_envs=num_envs, with_depth=True,
                                      with_rgb="RGB_SENSOR" in cfg.SENSORS and not cfg.EXTRA_RGB, device=self.device)
 
-    def _make_policy(self, gen: torch.Generator) -> Policy:
-        """The policy, initialised from ``gen``, sized to ``self.env``."""
+    def _make_policy(self, gen: torch.Generator, dtype: torch.dtype = torch.float32) -> Policy:
+        """The policy, initialised from ``gen``, sized to ``self.env``, its
+        CNNs computing at ``dtype``."""
         cfg = self.config
         sensors = self.env.config.sensors
         use_rgb, use_depth = "rgb" in sensors, "depth" in sensors
@@ -95,6 +98,7 @@ class AVNavTrainer(BaseRLTrainer):
                 use_rgb=use_rgb,
                 use_depth=use_depth,
                 generator=gen,
+                dtype=dtype,
             ),
             num_actions=len(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
             generator=gen,

@@ -47,7 +47,7 @@ class AVWanTrainer(AVNavTrainer):
         return BatchedMapNavEnv(construct_batched_env(cfg, num_envs=num_envs, with_depth=True, device=self.device),
                                 map_cfg)
 
-    def _make_policy(self, gen: torch.Generator) -> AVWanPolicy:
+    def _make_policy(self, gen: torch.Generator, dtype: torch.dtype = torch.float32) -> AVWanPolicy:
         map_cfg = self.env.config
         return AVWanPolicy(
             AVWanNet(
@@ -57,6 +57,7 @@ class AVWanTrainer(AVNavTrainer):
                 am_size=map_cfg.am_size,
                 action_map_size=map_cfg.action_map_size,
                 generator=gen,
+                dtype=dtype,
             ),
             generator=gen,
         )

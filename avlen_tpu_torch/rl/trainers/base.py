@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from avlen_tpu_torch.config.node import ConfigNode
+from avlen_tpu_torch.models.layers import precision_dtype
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
 from avlen_tpu_torch.utils.logging import logger
@@ -75,14 +76,6 @@ def eval_episode_accounting(seen, count: int, where: str) -> Dict[str, float]:
             where, len(seen), count,
         )
     return {"episodes_evaluated": float(len(seen))}
-
-
-def refuse_precision(config: ConfigNode) -> None:
-    """The port computes in float32 only: any other TPU.PRECISION raises."""
-    if config.TPU.PRECISION != "float32":
-        raise NotImplementedError(
-            f"TPU.PRECISION {config.TPU.PRECISION!r}: the PyTorch port computes in float32 only so far"
-        )
 
 
 class EpisodeWindow:
@@ -147,6 +140,13 @@ class BaseRLTrainer:
 
     def _setup(self, num_envs=None) -> None:  # overridden by trainers
         raise NotImplementedError
+
+    def compute_dtype(self) -> torch.dtype:
+        """TPU.PRECISION → the compute dtype passed into every tower
+        (parameters stay float32; ``models/layers.py`` casts as Flax does):
+        bfloat16/bf16, float32/fp32, float16/fp16; any other name raises
+        ``ValueError``, as in JAX."""
+        return precision_dtype(self.config.TPU.PRECISION)
 
     def eval_rollout_budget(self, num_episodes: int, num_envs: int, max_episode_steps: int) -> int:
         """Rollout budget of the exactly-once eval loops: enough rollouts for

@@ -24,7 +24,11 @@ ss_baselines/savi/ddppo/algo/ddppo_trainer.py:62-1200):
   eval of π_l's accuracy and CE against the oracle.
 
 The JAX package's device mesh belongs to DD-PPO (ROADMAP Queue 1 item 6)
-and to the TPU; its chunked host-prefetch collect to Queue 1 item 4.
+and to the TPU. Its chunked host-prefetch collect is a workaround for
+backends without host callbacks: the eager rollout reads host-served RIRs
+and calls the host speaker directly, which also serves SPEAKER.BANK_MODE
+cached where JAX allows it. ``TPU.PRECISION`` is the towers' compute dtype
+(``compute_dtype``) in all three policies and the belief predictor.
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ import numpy as np
 import torch
 
 from avlen_tpu_torch.core.registry import registry
-from avlen_tpu_torch.dialog.instruction_source import resolve_instruction_source, sub_instr_token_bank
+from avlen_tpu_torch.dialog.instruction_source import (
+    has_host_prefetcher,
+    resolve_instruction_source,
+    sub_instr_token_bank,
+)
 from avlen_tpu_torch.models.belief_predictor import BeliefPredictorNet, init_belief_state, update_beliefs
 from avlen_tpu_torch.models.dialog_policy import AudioNavDialogNet, DialogPolicy
 from avlen_tpu_torch.models.memory import init_memory
@@ -62,7 +70,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     BaseRLTrainer,
     eval_episode_accounting,
     exact_once_deal,
-    refuse_precision,
 )
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 from avlen_tpu_torch.sim.builder import construct_batched_env
@@ -94,7 +101,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         t0 = time.perf_counter()
         cfg = self.config
         dev = self.device
-        refuse_precision(cfg)
+        dtype = self.compute_dtype()
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         self.policy_type = cfg.RL.PPO.policy_type
@@ -113,7 +120,8 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         t_bank = time.perf_counter()
         bank, self.instr_source = resolve_instruction_source(
             cfg, self.env.scene_tables,
-            rgb_bank=self.env.bank.rgb if cfg.SPEAKER.USE_PANO_FEATURES else None, device=dev)
+            rgb_bank=self.env.bank.rgb if cfg.SPEAKER.USE_PANO_FEATURES else None, device=dev,
+            allow_cached=has_host_prefetcher(cfg, self.env))
         self.instr_bank = torch.as_tensor(bank, device=dev) if bank is not None else None
         self.bank_seconds = time.perf_counter() - t_bank if bank is not None else 0.0
         self.bank_bytes = int(bank.nbytes) if bank is not None else 0
@@ -131,6 +139,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
             use_label_belief=bp_cfg.use_label_belief,
             use_location_belief=bp_cfg.use_location_belief,
             pretraining=smt_cfg.pretraining,
+            dtype=dtype,
         )
 
         def gen(offset: int) -> torch.Generator:
@@ -171,6 +180,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
                 predict_location=bp_cfg.use_location_belief,
                 has_distractor_sound=self.env.config.has_distractor,
                 generator=gen(3),
+                dtype=dtype,
             ).to(dev).eval()
             if bp_cfg.pretrained_path and os.path.exists(bp_cfg.pretrained_path):
                 load_flax_params(self.belief_net, self.load_checkpoint(bp_cfg.pretrained_path)["state_dict"])
@@ -340,7 +350,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         stats = ppo_update_interactive(
             self.option_policy.evaluate_step, self.optimizer_q, traj, adv, ret, cfg,
             unct_coef=self.config.RL.PPO.unct_coef, generator=self.ppo_generator, perms=perms,
-            batched_chunk=self._eval_chunk())
+            batched_chunk=self._eval_chunk(), compute_dtype=self.compute_dtype())
         if self.config.REPLAY_STORE:
             stats["dialog_loss"] = self.update_dialog(traj, replay_only=True)["dialog_loss"]
         return stats
@@ -350,7 +360,8 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         dialog-pretraining trajectory, or (``replay_only``) over the queried
         steps of an interactive one. Returns ``{"dialog_loss": loss}``."""
         loss = dialog_supervised_update(self.dialog_policy.evaluate_step, self.optimizer_l, traj,
-                                        replay_only=replay_only, batched_chunk=self._eval_chunk())
+                                        replay_only=replay_only, batched_chunk=self._eval_chunk(),
+                                        compute_dtype=self.compute_dtype())
         return {"dialog_loss": loss}
 
     # ------------------------------------------------------------------

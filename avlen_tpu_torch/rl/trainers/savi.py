@@ -47,7 +47,6 @@ from avlen_tpu_torch.rl.trainers.base import (
     eval_episode_accounting,
     eval_pass,
     exact_once_deal,
-    refuse_precision,
 )
 from avlen_tpu_torch.sim.builder import construct_batched_env
 from avlen_tpu_torch.utils import preemption
@@ -71,7 +70,7 @@ class SaviTrainer(BaseRLTrainer):
         t0 = time.perf_counter()
         cfg = self.config
         dev = self.device
-        refuse_precision(cfg)
+        dtype = self.compute_dtype()
         self.ppo_cfg = ppo_config_from(cfg)
         self.num_steps = cfg.RL.PPO.num_steps
         smt_cfg = cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER
@@ -104,6 +103,7 @@ class SaviTrainer(BaseRLTrainer):
                 normalize_category_distribution=bp_cfg.normalize_category_distribution,
                 pretraining=smt_cfg.pretraining,
                 generator=gen,
+                dtype=dtype,
             ),
             generator=gen,
         ).to(dev).eval()
@@ -127,6 +127,7 @@ class SaviTrainer(BaseRLTrainer):
                 predict_location=bp_cfg.use_location_belief,
                 has_distractor_sound=self.env.config.has_distractor,
                 generator=gen,
+                dtype=dtype,
             ).to(dev).eval()
             if belief_path:
                 # offline-pretrained belief predictor (ppo_trainer.py:150-170)
@@ -217,7 +218,8 @@ class SaviTrainer(BaseRLTrainer):
         step = self.policy.evaluate_step_frozen if smt_cfg.freeze_encoders else self.policy.evaluate_step
         if smt_cfg.batched_eval:
             return evaluate_sequence_smt_batched(step, obs, initial_memory, masks, actions,
-                                                 chunk=smt_cfg.batched_eval_chunk)
+                                                 chunk=smt_cfg.batched_eval_chunk,
+                                                 compute_dtype=self.compute_dtype())
         # the sequential ring replay, one step of Bm rows at a time
         return evaluate_sequence_smt(step, obs, initial_memory, masks, actions)
 

@@ -109,6 +109,21 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
 12. ``interactive_reference``: the interactive collect on a tiny world,
     CUDA against CPU with the same weights and sampling draws: the three
     policies' logits within 1e-3 over at least 8 agreeing steps.
+12b. ``precision`` (last, after the kernel checks): TPU.PRECISION on the card.
+    savi.yaml at full width at float32 and at bfloat16 (two trainers from
+    one seed): one collect of 150 steps and one update each (env-steps/s,
+    ms, peak memory, every kernel's launches) and a profiled 10-step
+    collect (device ms a step by kernel family, the convolutions among
+    them; busy ms and idle share) after a second timed collect each; the
+    float32 collect re-evaluated by both
+    policies before either update (towers recomputed, the ring pool cast):
+    bf16 logits and values within PRECISION_BOUND (0.1) of float32's peak;
+    the tiny world's bf16 rollout, card against CPU, within the same bound;
+    each kernel against its plain version on its first bf16 launch's
+    inputs; one float16 collect + update with finite losses; at bfloat16
+    one AVLEN stage-2 collect (CLIP and the dialog encoder at bf16, the
+    neural speaker per query) and one AV-Nav collect + update, each beside
+    the same at float32.
 
 13. ``dialog_pretrain``: π_l pretraining through ``run.main`` on
     savi_pretraining_dialog_training.yaml at full width (8 envs, 3 steps an
@@ -869,8 +884,9 @@ def check_spectrogram(dev, gen, build_log: str):
         ptxas=ptxas)
 
 
-def tiny_config(sampling_rate: int = 8000, rir_length: int = 2000):
-    """savi.yaml on a tiny world: 3 envs, memory 8, d_model 32, 4 heads."""
+def tiny_config(sampling_rate: int = 8000, rir_length: int = 2000, extra=()):
+    """savi.yaml on a tiny world: 3 envs, memory 8, d_model 32, 4 heads
+    (and the ``extra`` options)."""
     from avlen_tpu_torch.config import get_config
 
     return get_config(SAVI_YAML, opts=[
@@ -884,7 +900,7 @@ def tiny_config(sampling_rate: int = 8000, rir_length: int = 2000):
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.memory_size", "8",
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size", "32",
         "RL.PPO.SCENE_MEMORY_TRANSFORMER.nhead", "4",
-    ])
+    ] + list(extra))
 
 
 def check_reference(dev, sampling_rate: int = 8000, rir_length: int = 2000):
@@ -3349,6 +3365,347 @@ def run_hostrir_savi(dev, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# precision: TPU.PRECISION on the card
+# ---------------------------------------------------------------------------
+
+PRECISION_BOUND = 0.1  # logits and values: max|low - reference| <= 0.1 * max|reference| (PERF.md §6)
+PRECISION_PROFILE_STEPS = 10  # the profiled collect of each precision's convolution split
+PRECISION_AVLEN_STEPS = 20  # the AVLEN stage-2 collect at each precision
+PRECISION_AGAIN_STEPS = 60  # the second timed SAVi collect at each precision
+# each kernel against its plain version on the bf16 path's own inputs, the
+# limits of the kernel phase: SMT abs, irfft relative to the output's peak,
+# spectrogram abs
+PRECISION_KERNEL_TOL = {"smt_encode": 1e-4, "partial_irfft": 1e-5, "spectrogram": 1e-4}
+
+
+@contextlib.contextmanager
+def first_kernel_inputs():
+    """Within the block, clones of the inputs of each kernel's first launch:
+    {"smt_encode": (entries, valid, goal, weights, nhead), "partial_irfft":
+    (spec, fft_len, out_start, out_len), "spectrogram": (audio, config)}.
+    The launches themselves and their counts are untouched."""
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    seen = {}
+    irfft_launch, spec_launch = irfft_cuda._launch, spectrogram_cuda._launch
+
+    def keep(name, args):
+        if name not in seen:
+            seen[name] = tuple(a.clone() if hasattr(a, "clone") else
+                               [w.detach().clone() for w in a] if isinstance(a, (list, tuple)) else a for a in args)
+
+    def irfft(*args):
+        keep("partial_irfft", args)
+        return irfft_launch(*args)
+
+    def spectro(*args):
+        keep("spectrogram", args)
+        return spec_launch(*args)
+
+    def smt(launch):
+        def run(*args):
+            keep("smt_encode", args)
+            return launch(*args)
+
+        return run
+
+    irfft_cuda._launch, spectrogram_cuda._launch = irfft, spectro
+    try:
+        with smt_cuda.wrapped_passes(smt, lambda backward: backward):
+            yield seen
+    finally:
+        irfft_cuda._launch, spectrogram_cuda._launch = irfft_launch, spec_launch
+
+
+def check_kernels_at(seen):
+    """Each kernel against its plain version on the captured inputs."""
+    import torch
+
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    out = {}
+    with torch.no_grad():
+        entries, valid, goal, weights, nhead = seen["smt_encode"]
+        params = dict(zip(smt_cuda.KERNEL_WEIGHTS, weights))
+        got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
+        want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
+        out["smt_encode"] = dict(shape=list(entries.shape), entries_dtype=str(entries.dtype),
+                                 max_abs_err=(got - want).abs().max().item())
+        spec, fft_len, start, length = seen["partial_irfft"]
+        got = irfft_cuda.partial_irfft(spec, fft_len, start, length)
+        want = irfft_cuda.partial_irfft_plain(spec, fft_len, start, length)
+        out["partial_irfft"] = dict(shape=list(spec.shape), fft_len=fft_len,
+                                    max_abs_err=(got - want).abs().max().item(), peak=want.abs().max().item())
+        audio, config = seen["spectrogram"]
+        got = spectrogram_cuda.spectrogram(audio, config)
+        want = spectrogram_cuda.spectrogram_plain(audio, config)
+        out["spectrogram"] = dict(shape=list(audio.shape), max_abs_err=(got - want).abs().max().item())
+    for name, r in out.items():
+        r["tol"] = PRECISION_KERNEL_TOL[name] * (r["peak"] if name == "partial_irfft" else 1.0)
+        r["ok"] = r["max_abs_err"] <= r["tol"]
+    return out
+
+
+def profile_collect(trainer, steps: int = PRECISION_PROFILE_STEPS, sessions: int = 3):
+    """One collect of ``steps`` steps under ``torch.profiler``: device ms a
+    step by kernel family (``scripts/profile_torch_rollout.family``), device
+    busy ms a step and the idle share of the window. A session that sees no
+    device event (it happens, PERF.md §7) is taken again, up to
+    ``sessions`` in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from scripts.profile_torch_rollout import family
+
+    for attempt in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.collect(n=steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fams, intervals = collections.Counter(), []
+        for ev in prof.events():
+            dt = getattr(ev, "device_type", None)
+            if dt is not None and "CUDA" in str(dt) and ev.time_range.elapsed_us() > 0 \
+                    and not ev.name.startswith("Mem"):
+                fams[family(ev.name)] += ev.time_range.elapsed_us()
+                intervals.append((ev.time_range.start, ev.time_range.end))
+        if intervals:
+            break
+        print(f"profile_collect: session {attempt + 1} saw no device event", file=sys.stderr, flush=True)
+    else:
+        raise AssertionError(f"precision: {sessions} profiler sessions saw no device event")
+    intervals.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in intervals:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return dict(steps=steps, host_ms_per_step=wall * 1e3 / steps, device_busy_ms_per_step=busy / 1e3 / steps,
+                device_idle_share=1.0 - busy / 1e6 / wall,
+                device_ms_per_step_by_family={k: v / 1e3 / steps for k, v in fams.most_common()})
+
+
+def policy_outputs(trainer, batch):
+    """(logits, values) of every step of ``batch`` under the trainer's
+    policy: the towers recomputed at its precision, the ring views gathered
+    from a pool cast to it, the SMT kernel (PPO's re-evaluation path)."""
+    import torch
+
+    from avlen_tpu_torch.rl.rollout_smt import evaluate_sequence_smt_batched
+
+    with torch.no_grad():
+        values, _, _, logits = evaluate_sequence_smt_batched(
+            trainer.policy.evaluate_step, batch.obs, batch.initial_hidden, batch.masks, batch.actions,
+            chunk=trainer.config.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk,
+            compute_dtype=trainer.compute_dtype())
+    return logits, values
+
+
+def share_of_peak(got, want) -> float:
+    """max|got - want| / max|want|."""
+    return ((got.float().cpu() - want.float().cpu()).abs().max() / want.float().cpu().abs().max()).item()
+
+
+def check_precision_reference(dev, n: int = 8):
+    """The tiny world at bfloat16 (with savi.yaml's 64 px frames: on 16-32
+    px frames the towers' last GroupNorms see a handful of values each and
+    magnify any rounding), the card against the CPU: the CPU's rollout
+    re-evaluated on both devices from the same weights, logits and values
+    within PRECISION_BOUND of the CPU's peak."""
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+
+    cfg = tiny_config(extra=("TPU.PRECISION", "bfloat16", "TASK_CONFIG.DATASET.SYNTHETIC.FRAME_RES", "64"))
+    ref_tr, got_tr = SaviTrainer(cfg, device="cpu"), SaviTrainer(cfg, device=dev)
+    ref_tr._setup()
+    got_tr._setup()
+    _, batch = ref_tr.collect(n=n)
+    ref, got = policy_outputs(ref_tr, batch), policy_outputs(got_tr, batch.to(dev))
+    return {"logits_share_of_peak": share_of_peak(got[0], ref[0]),
+            "values_share_of_peak": share_of_peak(got[1], ref[1]), "steps": n}
+
+
+def _finite(stats) -> bool:
+    return all(math.isfinite(float(v)) for v in stats.values())
+
+
+def _savi_round(trainer, capture: bool = False, between=None):
+    """One timed collect and update of a set-up SAVi trainer, every
+    kernel's launches counted from zero over the two; with ``capture`` the
+    kernels' first inputs too; ``between(batch)`` runs after the collect,
+    before the update, untimed and uncounted."""
+    import torch
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with first_kernel_inputs() if capture else contextlib.nullcontext({}) as seen:
+        t0 = time.perf_counter()
+        _, batch = trainer.collect()
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        if between is not None:
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            between(batch)
+            for k, fn in wrappers.items():
+                fn.launches = counts[k]
+        t0 = time.perf_counter()
+        stats = {k: v.item() for k, v in trainer.update(batch).items()}
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+    t_steps, b = batch.actions.shape
+    return dict(steps=t_steps, envs=b, collect_s=collect_s, collect_env_steps_per_s=t_steps * b / collect_s, update_ms=update_s * 1e3,
+                train_env_steps_per_s=t_steps * b / (collect_s + update_s), stats=stats,
+                launches={k: fn.launches for k, fn in wrappers.items()},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30), batch, seen
+
+
+def run_precision(dev, smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str):
+    """TPU.PRECISION on the card (phase ``precision``). SAVi at savi.yaml's
+    full width: a float32 and a bfloat16 trainer from the same seed (equal
+    weights), each warmed up by 5 steps, then one collect of 150 steps and
+    one update each (env-steps/s, update ms, peak memory, every kernel's
+    launches), a second timed collect of 60 steps each in the other order
+    (bf16 first), then a profiled 10-step collect each (device ms a step by
+    kernel family, convolutions among them; busy ms, idle share). Before
+    the updates the float32 collect is re-evaluated by both policies (towers
+    recomputed, ring pool cast): logits and values at bfloat16 within
+    PRECISION_BOUND of float32's peak; the tiny world's bf16 rollout, card
+    against CPU, within the same bound. Each kernel against its plain
+    version on the inputs of its first bf16 launch. One float16 SAVi
+    collect + update (finite losses, no loss scaling, as JAX). At bfloat16:
+    one AVLEN stage-2 collect of PRECISION_AVLEN_STEPS steps
+    (savi_interactive_2nd_stage.yaml, 6 envs, CLIP 512 x 12 and the dialog
+    encoder, the neural speaker per query) and one AV-Nav collect + update
+    (audiogoal_depth.yaml, its bank rendered at setup), each beside the
+    same run at float32 and after a short warm-up collect. Returns each
+    run's kernel launches."""
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.trainers.avnav import AVNavTrainer
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+
+    t_phase = time.perf_counter()
+    trainers, fields = {}, {"nvidia_smi": smi, "config": SAVI_YAML, "bound": PRECISION_BOUND}
+    for prec in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        tr = SaviTrainer(get_config(SAVI_YAML, opts=["TPU.PRECISION", prec]), device=dev)
+        tr._setup()
+        tr.collect(n=5)  # warm-up: cuDNN's algorithm choice, the allocator
+        torch.cuda.synchronize()
+        trainers[prec] = (tr, time.perf_counter() - t0)
+    f32, low = trainers["float32"][0], trainers["bfloat16"][0]
+    same = all(torch.equal(a, b) for a, b in zip(f32.policy.state_dict().values(), low.policy.state_dict().values()))
+
+    def compare(batch):  # the float32 collect, before either update: equal weights
+        ref, got = policy_outputs(f32, batch), policy_outputs(low, batch)
+        fields["bf16_vs_f32"] = {"logits_share_of_peak": share_of_peak(got[0], ref[0]),
+                                 "values_share_of_peak": share_of_peak(got[1], ref[1]),
+                                 "rows": int(batch.actions.numel()), "weights_equal": same}
+
+    runs, seen = {}, {}
+    for prec, (tr, setup_s) in trainers.items():
+        run, _, captured = _savi_round(tr, capture=prec == "bfloat16",
+                                       between=compare if prec == "float32" else None)
+        seen.update(captured)
+        run["setup_and_warmup_s"] = setup_s
+        runs[prec] = run
+    for prec in ("bfloat16", "float32"):  # a second collect each, in the other order: the host's pace spreads
+        tr = trainers[prec][0]
+        t0 = time.perf_counter()
+        tr.collect(n=PRECISION_AGAIN_STEPS)
+        torch.cuda.synchronize()
+        runs[prec]["collect_env_steps_per_s_again"] = (PRECISION_AGAIN_STEPS * tr.env.num_envs
+                                                       / (time.perf_counter() - t0))
+    for prec, (tr, _) in trainers.items():  # after the timed runs: a profiler session can slow what follows it
+        runs[prec]["profile"] = profile_collect(tr)
+    del trainers, f32, low, tr
+    torch.cuda.empty_cache()
+    fields["bf16_cpu_vs_card"] = check_precision_reference(dev)
+    fields["kernels_at_bf16_inputs"] = check_kernels_at(seen)
+
+    tr = SaviTrainer(get_config(SAVI_YAML, opts=["TPU.PRECISION", "float16"]), device=dev)
+    tr._setup()
+    tr.collect(n=5)
+    runs["float16"] = _savi_round(tr)[0]
+    del tr
+    torch.cuda.empty_cache()
+
+    wrappers = _kernel_wrappers()
+    for prec in ("float32", "bfloat16"):
+        tr = InteractiveDDPPOTrainer(get_config(INTERACTIVE_STAGE2, opts=[
+            "SPEAKER.CKPT_PATH", speaker_ckpt, "GOAL_CKPT_PATH", goal_ckpt,
+            "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt, "RESUME_CHECKPOINT", "False",
+            "TPU.PRECISION", prec]), device=dev)
+        tr._setup()
+        tr.collect(n=3)
+        for fn in wrappers.values():
+            fn.launches = 0
+        clip0 = tr.clip_calls
+        t0 = time.perf_counter()
+        _, traj = tr.collect(n=PRECISION_AVLEN_STEPS)
+        torch.cuda.synchronize()
+        runs[f"avlen_{prec}"] = dict(_traj_summary(traj, time.perf_counter() - t0),
+                                     clip_calls=tr.clip_calls - clip0, clip_dtype=str(tr.dialog_policy.net.clip.dtype),
+                                     launches={k: fn.launches for k, fn in wrappers.items()})
+        del tr, traj
+        torch.cuda.empty_cache()
+
+    for prec in ("float32", "bfloat16"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        tr = AVNavTrainer(get_config(AVNAV_YAML, opts=["TPU.PRECISION", prec]), device=dev)
+        tr._setup()  # renders the spectrogram bank: the kernels' launches
+        tr.collect(n=5)
+        t0 = time.perf_counter()
+        _, batch = tr.collect()
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = {k: v.item() for k, v in tr.update(batch).items()}
+        torch.cuda.synchronize()
+        t_steps, b = batch.actions.shape
+        runs[f"avnav_{prec}"] = dict(collect_env_steps_per_s=t_steps * b / collect_s,
+                                     update_ms=(time.perf_counter() - t0) * 1e3, stats=stats,
+                                     launches={k: fn.launches for k, fn in wrappers.items()})
+        del tr, batch
+        torch.cuda.empty_cache()
+
+    fields["runs"] = runs
+    fields["seconds"] = time.perf_counter() - t_phase
+    emit("precision", **fields)
+    bad = [k for k in ("float32", "bfloat16", "float16", "avnav_float32", "avnav_bfloat16")
+           if not _finite(runs[k]["stats"])]
+    bad += [k for k in ("avlen_float32", "avlen_bfloat16") if not all(runs[k]["finite"].values())]
+    if bad:
+        raise AssertionError(f"precision: non-finite losses or outputs in {bad}")
+    if not same:
+        raise AssertionError("precision: the float32 and bfloat16 trainers' weights differ")
+    for key in ("bf16_vs_f32", "bf16_cpu_vs_card"):
+        shares = {k: v for k, v in fields[key].items() if k.endswith("share_of_peak")}
+        if not all(v <= PRECISION_BOUND for v in shares.values()):
+            raise AssertionError(f"precision: {key} {shares} over the bound {PRECISION_BOUND}")
+    off = {k: r for k, r in fields["kernels_at_bf16_inputs"].items() if not r["ok"]}
+    if off:
+        raise AssertionError(f"precision: kernels disagree with their plain versions on bf16 inputs: {off}")
+    for prec in ("float32", "bfloat16", "float16"):  # one launch of each a step at least
+        short = {k: n for k, n in runs[prec]["launches"].items() if n < runs[prec]["steps"]}
+        if short:
+            raise AssertionError(f"precision {prec}: kernels launched fewer than once a step: {short}")
+    avlen = runs["avlen_bfloat16"]
+    if not all(avlen["launches"].values()) or avlen["clip_dtype"] != "torch.bfloat16" or not avlen["clip_calls"]:
+        raise AssertionError(f"precision: AVLEN at bfloat16 {avlen}")
+    return {k: r["launches"] for k, r in runs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3377,7 +3734,7 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    emit("precision", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+    emit("tf32", cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     check_reference(dev)
@@ -3416,6 +3773,10 @@ def main() -> int:
         "spectrogram": check_spectrogram(dev, gen, logs["spectrogram"]),
     }
     results["smt_encode"]["interactive_shapes"] = check_smt_interactive_shapes(dev, gen)
+    # last: its long profiler sessions made later sessions of the kernel
+    # checks lose events (on an H100, 97 of 120 for 20 SMT calls, five
+    # sessions running)
+    precision_launches = run_precision(dev, smi, goal_ckpt, belief_ckpt, speaker_ckpt)
 
     meta = {
         "smt_encode": ("avlen_tpu_torch/csrc/smt_encode.cu", "avlen_tpu/ops/pallas_smt.py:305"),
@@ -3437,6 +3798,7 @@ def main() -> int:
          "launches_avnav_train": baseline_launches["avnav"][name],
          "launches_avwan_train": baseline_launches["avwan"][name],
          **{f"launches_{phase}": counts[name] for phase, counts in reference_launches.items()},
+         "launches_precision": {run: counts[name] for run, counts in precision_launches.items()},
          **results[name],
          "status": "ok"}
         for name in meta

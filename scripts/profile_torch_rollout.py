@@ -2,6 +2,7 @@
 """Where a rollout step's time goes in the PyTorch port, on one CUDA card.
 
     python3 scripts/profile_torch_rollout.py [--steps 20] [--trace PATH] [--interactive]
+                                             [--precision float32|bfloat16|float16]
 
 Builds the port's ``SaviTrainer`` on configs/semantic_audionav/savi/savi.yaml
 at its full widths (with ``--interactive``: the AVLEN trainer on
@@ -12,7 +13,8 @@ line: host wall ms per step; device busy ms per step (the union of kernel
 intervals) and the device's idle share of the window; host time per labelled
 phase (env step, belief predictor, each policy's act and its visual / audio
 / SMT parts, the CLIP tower); and device time per kernel family, with the
-top kernels by name. ``--trace`` also writes the Chrome trace there.
+top kernels by name. ``--trace`` also writes the Chrome trace there;
+``--precision`` sets TPU.PRECISION (the towers' compute dtype).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace", default="")
     ap.add_argument("--interactive", action="store_true")
+    ap.add_argument("--precision", default="float32")
     args = ap.parse_args()
 
     import torch
@@ -78,7 +81,8 @@ def main() -> int:
     if args.interactive:
         trainer = InteractiveDDPPOTrainer(get_config(
             "configs/semantic_audionav/savi/savi_interactive_1st_stage.yaml",
-            opts=["SPEAKER.BACKEND", "template", "SPEAKER.BANK_MODE", "bank"]), device=dev)
+            opts=["SPEAKER.BACKEND", "template", "SPEAKER.BANK_MODE", "bank", "TPU.PRECISION", args.precision]),
+            device=dev)
         trainer._setup()
         policies = {"pi_g": (trainer.goal_policy, trainer.goal_policy.net),
                     "pi_l": (trainer.dialog_policy, trainer.dialog_policy.net.smt_net),
@@ -86,7 +90,8 @@ def main() -> int:
         clip = trainer.dialog_policy.net.clip
         clip.forward = labelled("clip_tower", clip.forward)
     else:
-        trainer = SaviTrainer(get_config("configs/semantic_audionav/savi/savi.yaml"), device=dev)
+        trainer = SaviTrainer(get_config("configs/semantic_audionav/savi/savi.yaml",
+                                         opts=["TPU.PRECISION", args.precision]), device=dev)
         trainer._setup()
         policies = {"policy": (trainer.policy, trainer.policy.net)}
     env = trainer.env
@@ -139,7 +144,7 @@ def main() -> int:
     n = args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "interactive": args.interactive,
+        "device": torch.cuda.get_device_name(0), "interactive": args.interactive, "precision": args.precision,
         "steps": n, "num_envs": env.num_envs,
         "host_wall_ms_per_step": wall * 1e3 / n,
         "env_steps_per_s": n * env.num_envs / wall,

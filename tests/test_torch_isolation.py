@@ -46,5 +46,5 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan",
                 "dialog.speaker.model", "dialog.speaker.pano_features", "dialog.speaker.train_speaker",
                 "dialog.speaker.eval_speaker", "utils.maps", "utils.video", "data.reference", "sim.mp3d_utils",
-                "sim.graph"):
+                "sim.graph", "models.layers"):
         assert f"avlen_tpu_torch.{sub}" in names, sub

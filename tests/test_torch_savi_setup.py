@@ -6,8 +6,9 @@ use_belief_predictor. A chosen path that does not exist raises
 FileNotFoundError as in JAX; one that exists is a real checkpoint (a
 critic head only) whose leaves ``_setup`` merges into the policy of a tiny
 world; a path JAX never reads raises nothing.
-Also: a precision other than float32 is refused, not run in float32; the
-sequential ring replay (``batched_eval`` off) sets up as JAX's does."""
+Also: TPU.PRECISION bfloat16 sets up, and a name outside JAX's table
+raises its ValueError; the sequential ring replay (``batched_eval`` off)
+sets up as JAX's does."""
 
 import numpy as np
 import pytest
@@ -73,7 +74,8 @@ def _setup(tmp_path, monkeypatch, opts, loads=False):
     (["RL.DDPPO.pretrained", "True", "RL.PPO.SCENE_MEMORY_TRANSFORMER.pretrained_path", "MISSING"],
      FileNotFoundError),
     (["RL.PPO.SCENE_MEMORY_TRANSFORMER.pretrained_path", "EXISTING"], LOADS),
-    (["TPU.PRECISION", "bfloat16"], NotImplementedError),
+    (["TPU.PRECISION", "bfloat16"], _PastTheChecks),
+    (["TPU.PRECISION", "int8"], ValueError),
     (["RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval", "False"], _PastTheChecks),
 ])
 def test_setup_reads_the_paths_jax_reads(tmp_path, monkeypatch, opts, raises):
