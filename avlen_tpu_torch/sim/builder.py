@@ -4,9 +4,10 @@ PyTorch counterpart of ``avlen_tpu/sim/builder.py``: ONE batched env whose
 episode packing deals scenes round-robin across env slots, over a world from
 either source: ``DATASET.SOURCE "synthetic"`` (procedural worlds, their RIRs
 optionally re-served from the host, ``DATASET.SYNTHETIC.PACK_HOST_RIRS``) or
-``"reference"`` (the reference's on-disk tree, ``data/reference.py``).
-Cached frame banks (``DATASET.FRAME_CACHE_DIR``) belong to a later slice of
-the port and raise ``NotImplementedError``.
+``"reference"`` (the reference's on-disk tree, ``data/reference.py``). A
+synthetic world takes its frames from cached banks when
+``DATASET.FRAME_CACHE_DIR`` is set (served by the native frame server,
+``native/frame_server.py``; ``scripts/cache_observations.py`` writes them).
 """
 
 from __future__ import annotations
@@ -99,11 +100,6 @@ def build_world_from_config(
         return build_reference_scene_bank(ref_cfg, device=device)
 
     syn = tc.DATASET.SYNTHETIC
-    if tc.DATASET.FRAME_CACHE_DIR:
-        raise NotImplementedError(
-            "DATASET.FRAME_CACHE_DIR (frame banks served by the native frame server) is not ported "
-            "yet: ROADMAP Queue 1 item 4"
-        )
     rng = np.random.RandomState(seed if seed is not None else syn.SEED)
     bank, tables = make_scene_bank(
         rng,
@@ -128,9 +124,55 @@ def build_world_from_config(
         max_hops=syn.MAX_HOPS,
         with_distractor=tc.SIMULATOR.AUDIO.HAS_DISTRACTOR_SOUND,
     )
+    if tc.DATASET.FRAME_CACHE_DIR:
+        _load_frame_banks_via_server(bank, tables, tc.DATASET.FRAME_CACHE_DIR)
     if syn.PACK_HOST_RIRS:
         pack_synthetic_host_rirs(bank, tc.SIMULATOR.AUDIO.RIR_SAMPLING_RATE)
     return bank, tables, episodes
+
+
+def _load_frame_banks_via_server(bank, tables_list, cache_dir: str) -> None:
+    """Replace the bank's frames with cached ones served by the native mmap
+    frame server (``scripts/cache_observations.py`` writes them): the
+    runtime counterpart of the reference's per-scene observation pickles
+    loaded at sim startup (soundspaces/simulator.py:62-93, 372-377). The
+    frames take the banks' H×W; rows past a scene's nodes are zero; depth
+    is uint16 / 65535 on the host. The stacked frames go to the bank's
+    device once, through pinned memory on a CUDA device."""
+    from avlen_tpu_torch.native.frame_server import FrameServer
+
+    n_max = bank.max_nodes
+    rgbs, depths = [], []
+    for i, t in enumerate(tables_list):
+        nodes = np.repeat(np.arange(t.num_nodes, dtype=np.int32), 4)
+        rots = np.tile(np.arange(4, dtype=np.int32), t.num_nodes)
+        rgb_path = os.path.join(cache_dir, f"scene{i:03d}_rgb.avlf")
+        depth_path = os.path.join(cache_dir, f"scene{i:03d}_depth.avlf")
+        if not (os.path.exists(rgb_path) and os.path.exists(depth_path)):
+            raise FileNotFoundError(f"frame bank missing for scene {i} in {cache_dir}")
+        frames = []
+        for path, dtype in ((rgb_path, np.uint8), (depth_path, np.uint16)):
+            srv = FrameServer(path, dtype=dtype)
+            try:  # a bank that does not cover the scene raises IndexError
+                frames.append(srv.gather(nodes, rots).reshape(t.num_nodes, 4, srv.h, srv.w, srv.c))
+            finally:
+                srv.close()
+        r, d = frames
+        rp = np.zeros((n_max,) + r.shape[1:], np.uint8)
+        dp = np.zeros((n_max,) + d.shape[1:], np.float32)
+        rp[: t.num_nodes] = r
+        dp[: t.num_nodes] = d.astype(np.float32) / 65535.0
+        rgbs.append(rp)
+        depths.append(dp)
+
+    def dev(a):
+        host = torch.from_numpy(np.stack(a))
+        if bank.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(bank.device)
+
+    bank.rgb = dev(rgbs)
+    bank.depth = dev(depths)
 
 
 PACK_HOST_RIRS_MAX_BYTES = 16 << 30

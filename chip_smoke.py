@@ -196,6 +196,29 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     packed env against the procedural env of the same seed (spectrograms
     within 2e-3, rewards and dones exact).
 
+21. ``frame_cache_savi``: savi.yaml uncut plus DATASET.FRAME_CACHE_DIR on
+    the banks that ``avlen_tpu_torch.scripts.cache_observations`` writes
+    (2 scenes at SIDE 11, 64 px; savi.yaml's own scenes are SIDE 10): one
+    150-step collect and one update, every observed rgb and depth (the
+    reset's and each step's) equal to the files' frame at the env's node and
+    rotation, the kernels launched as in the ``update`` phase (151 of each
+    in the collect, 80 SMT in the update); the banks' bytes, the load's ms,
+    env-steps/s.
+22. ``vln_dialog``: FGR2R / VLN-CE / connectivity files fabricated for the
+    reference tree's scene (``write_r2r_fixtures``), aligned by the port's
+    ``generate_dialog_dataset`` (min_path_len 2: the 2x2 tree has no path of
+    the reference's 7 nodes) into its dialog_approx split; then through
+    ``run.main`` from that split, every RIR from the host store: π_l
+    pretraining at savi_pretraining_dialog_training.yaml's width (2
+    updates, every step served the episode's dataset ``sub_instr``), and
+    AVLEN stage 1 at savi_interactive_1st_stage.yaml's (the neural speaker,
+    π_g from reference_train_savi's last checkpoint; train 2 → resume exact
+    → train 1 → eval of both episodes), every kernel's launches by shape as
+    the configs imply.
+
+``native_build`` (after ``build``) compiles the native host libraries
+(frame server, graph engine) with g++ into ``build/native/``.
+
 The kernel checks (phase 7) then add ``smt_interactive_shapes``: the SMT
 kernel against its plain version at every AVLEN shape (the acting step's
 three at 6 envs; π_q's update at (45,151,320), with the gradient through
@@ -1752,8 +1775,10 @@ def avlen_checked_shapes():
     """The launch shapes (as ``launch_shapes`` keys them) that the kernel
     checks hold against the plain versions on the AVLEN paths."""
     return {"smt_encode": {(b, m + 1, width) for _, b, m, _, width in SMT_AVLEN_CASES},
-            "partial_irfft": {(b, 2, 65536) for b in AVLEN_AUDIO_ENVS.values()},
-            "spectrogram": {(b, 2, 16000) for b in AVLEN_AUDIO_ENVS.values()}}
+            "partial_irfft": {(b, 2, 65536) for b in AVLEN_AUDIO_ENVS.values()}
+            | {(b, 2, n) for b, n, _, _ in REFERENCE_AUDIO.values()},
+            "spectrogram": {(b, 2, 16000) for b in AVLEN_AUDIO_ENVS.values()}
+            | {(b, 2, length) for b, _, _, length in REFERENCE_AUDIO.values()}}
 
 
 def check_smt_interactive_shapes(dev, gen):
@@ -3011,7 +3036,10 @@ REFERENCE_SENSORS = ("['SPECTROGRAM_SENSOR','CATEGORY','POSE_SENSOR','COLLISION'
 REFERENCE_EVAL_EPISODES = 3  # every episode of the tree
 # the fixture's audio at the kernels: (rows, fft_len, out_start, out_len) of
 # the irfft, 4 kHz audio of the spectrogram
-REFERENCE_AUDIO = {"reference_4k": (REFERENCE_ENVS, 8192, 199, 4000)}
+# and vln_dialog's rows on the same tree: π_l pretraining's 8 envs, AVLEN
+# stage 1's 6 and its eval's 10
+REFERENCE_AUDIO = {"reference_4k": (REFERENCE_ENVS, 8192, 199, 4000), "vln_pretrain_4k": (8, 8192, 199, 4000),
+                   "vln_stage1_4k": (6, 8192, 199, 4000), "vln_eval_4k": (10, 8192, 199, 4000)}
 HOSTRIR_COMPARE_STEPS = 20
 
 
@@ -3368,6 +3396,496 @@ def run_hostrir_savi(dev, smi: str):
 # ---------------------------------------------------------------------------
 # precision: TPU.PRECISION on the card
 # ---------------------------------------------------------------------------
+
+VLN_DIR = "build/chip_smoke_vln"  # the tree's copy, its fabricated R2R files, the model dirs
+VLN_SCAN = "sceneA"
+# one FGR2R trajectory over the tree's 2x2 grid (nodes 1 → 3 → 2 → 0) with two
+# sub-instructions (1-based inclusive viewpoint chunks, as FGR2R's chunk_view)
+VLN_PATH = (1, 3, 2, 0)
+VLN_CHUNKS = ((1, 3), (3, 4))
+VLN_SUB_INSTRS = (("go", "forward", "then", "turn", "left", "at", "the", "table"),
+                  ("walk", "to", "the", "cushion", "and", "stop"))
+VLN_HEADING = 0.0  # MatterSim radians at the path's start
+# the reference's bar is 7 nodes on a path (generate_vln_episode.py); the
+# 2x2 tree has no path longer than 3, so the alignment is cut to 2
+VLN_MIN_PATH_LEN = 2
+VLN_EPISODES = 2  # what the CPU aligns from these files (tests/test_torch_reference_dialog.py)
+
+
+def _mattersim_pose(habitat_pos):
+    """A MatterSim pose (row-major 16) whose r_mat transform lands on
+    ``habitat_pos``: translation (x_h, -z_h, y_h)."""
+    x, y, z = (float(v) for v in habitat_pos)
+    return [1, 0, 0, x, 0, 1, 0, -z, 0, 0, 1, y, 0, 0, 0, 1]
+
+
+def write_r2r_fixtures(tree: str) -> dict:
+    """FGR2R, VLN-CE and MatterSim connectivity files for the reference
+    tree's scene at ``tree``, in the layout of tests/test_vln_alignment.py's
+    ``_write_fixtures``: a viewpoint 1.5 m above each of the scene's nodes,
+    connected along the scene graph's edges; one FGR2R trajectory over
+    VLN_PATH whose instruction VLN-CE also holds, cut into VLN_SUB_INSTRS by
+    VLN_CHUNKS. Returns the paths, under ``tree``/r2r."""
+    import gzip
+
+    import numpy as np
+
+    from avlen_tpu_torch.data.reference import load_scene_graph
+
+    graph = load_scene_graph(os.path.join(tree, "metadata", "mp3d", VLN_SCAN))
+    views = graph.positions + np.array([0, 1.5, 0], np.float32)
+    view_ids = [f"{VLN_SCAN}_v{i}" for i in range(graph.num_nodes)]
+    linked = {(int(a), int(b)) for a, b in graph.edges} | {(int(b), int(a)) for a, b in graph.edges}
+    conn = [{"image_id": vid, "pose": _mattersim_pose(views[i]), "included": True,
+             "unobstructed": [(i, j) in linked for j in range(graph.num_nodes)]}
+            for i, vid in enumerate(view_ids)]
+    r2r = os.path.join(tree, "r2r")
+    paths = dict(connectivity_dir=os.path.join(r2r, "connectivity"), fgr2r=os.path.join(r2r, "FGR2R_train.json"),
+                 vlnce=os.path.join(r2r, "R2R_VLNCE_v1-2", "train", "train.json.gz"))
+    os.makedirs(paths["connectivity_dir"], exist_ok=True)
+    os.makedirs(os.path.dirname(paths["vlnce"]), exist_ok=True)
+    with open(os.path.join(paths["connectivity_dir"], f"{VLN_SCAN}_connectivity.json"), "w") as f:
+        json.dump(conn, f)
+    full = " ".join(w for sub in VLN_SUB_INSTRS for w in sub)
+    fgr2r = [{"scan": VLN_SCAN, "path": [view_ids[i] for i in VLN_PATH], "heading": VLN_HEADING,
+              "instructions": [full], "new_instructions": repr([[list(sub) for sub in VLN_SUB_INSTRS]]),
+              "chunk_view": [[list(c) for c in VLN_CHUNKS]]}]
+    with open(paths["fgr2r"], "w") as f:
+        json.dump(fgr2r, f)
+    vlnce = {"episodes": [{"episode_id": 1, "instruction": {"instruction_text": full},
+                           "scene_id": f"mp3d/{VLN_SCAN}/{VLN_SCAN}.glb",
+                           "reference_path": [views[i].tolist() for i in VLN_PATH],
+                           "start_rotation": [0.0, 0.0, 0.0, 1.0]}]}
+    with gzip.open(paths["vlnce"], "wt") as f:
+        json.dump(vlnce, f)
+    return paths
+
+
+def align_reference_dialog(tree: str, min_path_len: int = VLN_MIN_PATH_LEN):
+    """VLN alignment of ``write_r2r_fixtures``' files onto the tree's scene
+    graphs with the port's ``generate_dialog_dataset``, into the tree's
+    ``datasets/semantic_audionav_dialog_approx/v1/train`` (the shards under
+    ``content/`` and the split-level stub the data path names). Returns
+    (the stub's path, the episode count of each scan, seconds)."""
+    from avlen_tpu_torch.data.reference import load_scene_graph
+    from avlen_tpu_torch.data.vln import generate_dialog_dataset
+
+    paths = write_r2r_fixtures(tree)
+    meta = os.path.join(tree, "metadata", "mp3d")
+    out = os.path.join(tree, "datasets", "semantic_audionav_dialog_approx", "v1", "train")
+    t0 = time.perf_counter()
+    counts = generate_dialog_dataset(
+        fgr2r_path=paths["fgr2r"], vlnce_paths=[paths["vlnce"]], connectivity_dir=paths["connectivity_dir"],
+        scene_graphs={s: load_scene_graph(os.path.join(meta, s)) for s in sorted(os.listdir(meta))},
+        audionav_dataset_dir=os.path.join(tree, "datasets", "semantic_audionav", "v1", "train"), output_dir=out,
+        min_path_len=min_path_len)
+    return os.path.join(out, "dataset.json.gz"), counts, time.perf_counter() - t0
+
+
+def dialog_overrides(tree: str, data_path: str):
+    """``reference_overrides`` with the data path on the aligned dialog
+    dataset."""
+    opts = reference_overrides(tree)
+    opts[opts.index("TASK_CONFIG.DATASET.DATA_PATH") + 1] = data_path
+    return opts
+
+
+def run_native_build():
+    """``native_build``: both native host libraries (the frame server and
+    the graph engine) compiled by g++ from ``avlen_tpu_torch/native/`` into
+    ``build/native/``, each rebuilt here; raises with g++'s output if a
+    compile fails."""
+    from avlen_tpu_torch.native import build as native_build
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60,
+                         check=True).stdout.splitlines()[0]
+    seconds = native_build.build_native(force=True)
+    libs = {name: os.path.relpath(native_build.native_lib_path(name)) for name in native_build.SOURCES}
+    emit("native_build", gxx=gxx, flags=list(native_build.CXX_FLAGS), seconds=seconds, libraries=libs,
+         bytes={name: os.path.getsize(path) for name, path in libs.items()})
+    if set(seconds) != set(native_build.SOURCES) or not all(os.path.isfile(p) for p in libs.values()):
+        raise AssertionError(f"native_build: built {sorted(seconds)}, libraries {libs}")
+
+
+FRAME_CACHE_DIR = "build/chip_smoke_frames"  # the banks of the frame_cache_savi phase
+# savi.yaml's two scenes (SIDE 10, seed 0) hold 79 and 89 nodes; the CLI draws
+# its own graphs, and at SIDE 11 its banks (96 and 105 nodes) cover both
+FRAME_CACHE_ARGS = ("--scenes", "2", "--side", "11", "--res", "64", "--seed", "0")
+
+
+def read_frame_bank(path: str):
+    """A bank file's frames (N, A, H, W, C), read with numpy from its bytes
+    (header: magic, N, A, H, W, C, item size), apart from the server."""
+    import numpy as np
+
+    _, n, a, h, w, c, size = (int(v) for v in np.fromfile(path, "<i4", count=7))
+    return np.fromfile(path, {1: np.uint8, 2: np.uint16}[size], offset=28).reshape(n, a, h, w, c)
+
+
+def run_frame_cache_savi(dev, smi: str, root: str = FRAME_CACHE_DIR):
+    """``frame_cache_savi``: savi.yaml uncut plus DATASET.FRAME_CACHE_DIR on
+    banks that ``avlen_tpu_torch.scripts.cache_observations`` writes under
+    ``root`` (FRAME_CACHE_ARGS). One collect of 150 steps and one update.
+    Fails unless the bank on the card equals the files' frames (depth as
+    uint16 / 65535, zero rows past a scene's nodes), every observed rgb and
+    depth of the reset and the steps equals the files' frame at the env's
+    scene, node and rotation, and the kernels launched as on savi.yaml: T+1
+    of each in the setup and collect (the reset's observation, a step each,
+    the SMT's bootstrap), ppo_epoch x minibatches x T/chunk SMT launches in
+    the update and no audio launch. Emits the banks' bytes, the load's ms
+    and env-steps/s."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.rl.rollout_smt import ring_eval_chunk
+    from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
+    from avlen_tpu_torch.scripts import cache_observations
+    from avlen_tpu_torch.sim import builder
+    from avlen_tpu_torch.sim.env import BatchedAudioNavEnv
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    cache_observations.main(["--output", root, *FRAME_CACHE_ARGS])
+    write_s = time.perf_counter() - t0
+    files = {name: os.path.getsize(os.path.join(root, name)) for name in sorted(os.listdir(root))}
+    want, bank_nodes = {}, {}
+    for kind in ("rgb", "depth"):
+        banks = [read_frame_bank(os.path.join(root, f"scene{i:03d}_{kind}.avlf")) for i in range(2)]
+        bank_nodes[kind] = [b.shape[0] for b in banks]
+        frames = np.zeros((2, max(b.shape[0] for b in banks)) + banks[0].shape[1:], banks[0].dtype)
+        for i, b in enumerate(banks):
+            frames[i, : b.shape[0]] = b
+        want[kind] = torch.as_tensor(frames if kind == "rgb" else frames.astype(np.float32) / 65535.0, device=dev)
+
+    seen = dict(observations=0, frames=0)
+    wrong = torch.zeros((), dtype=torch.long, device=dev)
+    observe, load = BatchedAudioNavEnv._observe, builder._load_frame_banks_via_server
+    load_ms = []
+
+    def observed(self, state):
+        obs = observe(self, state)
+        at = (state.scene, state.node, state.rot)
+        for kind in ("rgb", "depth"):
+            wrong.add_((obs[kind] != want[kind][at]).flatten(1).any(1).sum())
+        seen["observations"] += 1
+        seen["frames"] += int(state.node.shape[0])
+        return obs
+
+    def timed_load(*args):
+        t0 = time.perf_counter()
+        load(*args)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = get_config(SAVI_YAML, opts=["TASK_CONFIG.DATASET.FRAME_CACHE_DIR", root])
+    BatchedAudioNavEnv._observe, builder._load_frame_banks_via_server = observed, timed_load
+    try:
+        t0 = time.perf_counter()
+        trainer = SaviTrainer(cfg, device=dev)
+        trainer._setup()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, batch = trainer.collect()
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        collect_launches = {k: fn.launches for k, fn in wrappers.items()}
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = {k: v.item() for k, v in trainer.update(batch).items()}
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        update_launches = {k: fn.launches for k, fn in wrappers.items()}
+    finally:
+        BatchedAudioNavEnv._observe, builder._load_frame_banks_via_server = observe, load
+    env = trainer.env
+    tables = env.scene_tables
+    bank_equal = {}
+    for kind in ("rgb", "depth"):
+        got = getattr(env.bank, kind)
+        ok = tuple(got.shape[-3:]) == tuple(want[kind].shape[-3:]) and got.device == want[kind].device
+        for i, t in enumerate(tables):
+            ok = ok and torch.equal(got[i, : t.num_nodes], want[kind][i, : t.num_nodes])
+            ok = ok and not bool(got[i, t.num_nodes:].any())
+        bank_equal[kind] = ok
+    t_steps, b = trainer.num_steps, env.num_envs
+    ppo_cfg = trainer.ppo_cfg
+    chunk = ring_eval_chunk(cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, t_steps)
+    want_update = ppo_cfg.ppo_epoch * min(ppo_cfg.num_mini_batch, b) * (t_steps // chunk)
+    fields = dict(
+        nvidia_smi=smi, config=SAVI_YAML, cache_args=list(FRAME_CACHE_ARGS), files=files,
+        bank_bytes=sum(files.values()), write_s=write_s, load_ms=load_ms,
+        scene_nodes=[t.num_nodes for t in tables], bank_nodes=bank_nodes,
+        frame_shape=list(env.bank.rgb.shape[-3:]), depth_shape=list(env.bank.depth.shape[-3:]),
+        num_envs=b, num_steps=t_steps, setup_s=setup_s, collect_s=collect_s, env_steps_per_s=t_steps * b / collect_s,
+        update_ms=update_s * 1e3, train_env_steps_per_s=t_steps * b / (collect_s + update_s),
+        observations_checked=seen["observations"], frames_checked=seen["frames"], frames_wrong=int(wrong),
+        bank_equal=bank_equal, collect_launches=collect_launches, update_launches=update_launches,
+        want_update_smt_launches=want_update, stats=stats)
+    del trainer, env, batch
+    torch.cuda.empty_cache()
+    emit("frame_cache_savi", **fields)
+    if not all(bank_equal.values()) or fields["frames_wrong"] or seen["observations"] < t_steps + 1:
+        raise AssertionError(f"frame_cache_savi: bank equal {bank_equal}, {fields['frames_wrong']} of "
+                             f"{seen['frames']} observed frames differ from the files' over {seen['observations']}")
+    if collect_launches != {k: t_steps + 1 for k in collect_launches}:
+        raise AssertionError(f"frame_cache_savi: setup + collect launches {collect_launches}, want {t_steps + 1} each")
+    if update_launches != {"smt_encode": want_update, "partial_irfft": 0, "spectrogram": 0}:
+        raise AssertionError(f"frame_cache_savi: update launches {update_launches}, want {want_update} SMT")
+    if len(load_ms) != 1 or not all(math.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"frame_cache_savi: {len(load_ms)} bank loads, stats {stats}")
+    return {k: collect_launches[k] + update_launches[k] for k in collect_launches}
+
+
+VLN_PRETRAIN_UPDATES = 2
+
+
+def run_vln_dialog(smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str, root: str = VLN_DIR):
+    """``vln_dialog``: VLN alignment → π_l pretraining → AVLEN stage 1 on the
+    reference tree, through ``run.main`` at full width. A copy of the tree
+    (under ``root``) gets ``write_r2r_fixtures``' FGR2R / VLN-CE /
+    connectivity files, aligned by the port's ``generate_dialog_dataset``
+    (min_path_len VLN_MIN_PATH_LEN) into its dialog_approx split; with
+    ``dialog_overrides`` (every RIR from the host store, no spectrogram
+    bank) and that split's data path: (a) savi_pretraining_dialog_training.
+    yaml (8 envs, CLIP 512 x 12, d_model 256), VLN_PRETRAIN_UPDATES updates
+    and one ``vln/ckpt``; (b) savi_interactive_1st_stage.yaml (6 envs, memory
+    150, the shipped neural speaker) from π_g (``goal_ckpt``: SAVi trained on
+    the same tree, as reference_train_savi writes it; a π_g's audio encoder
+    is sized by the spectrogram, so one trained at 16 kHz does not load at
+    the tree's 4 kHz), the belief predictor and (a)'s π_l: train 2 updates
+    → resume (ckpt.1 exactly) → train 1 → eval of every episode. Fails
+    unless the alignment gives VLN_EPISODES episodes, every pretraining step
+    serves each episode's dataset ``sub_instr`` tokens, the CE is finite at
+    the first and last update, the resume is exact, each run launched every
+    kernel as its config implies (by shape), and the kernel checks cover
+    every launch shape."""
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.data.reference import HostRIRStore
+    from avlen_tpu_torch.rl.rollout_smt import ring_eval_chunk
+    from avlen_tpu_torch.rl.trainers.interactive import InteractiveDDPPOTrainer as Trainer
+    from avlen_tpu_torch.sim.env import BatchedAudioNavEnv
+    from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
+    from avlen_tpu_torch.utils.tb import read_scalars
+
+    root = os.path.abspath(root)
+    tree = copy_reference_tree(root)
+    data_path, counts, align_s = align_reference_dialog(tree)
+    overrides = dialog_overrides(tree, data_path)
+    fields = dict(nvidia_smi=smi, overrides=dialog_overrides("<tree>", "<aligned>/dataset.json.gz"),
+                  aligned=dict(counts=counts, seconds=align_s, min_path_len=VLN_MIN_PATH_LEN,
+                               cut="min_path_len 7 -> 2: the 2x2 tree has no path of 7 nodes"))
+    if counts != {VLN_SCAN: VLN_EPISODES}:
+        raise AssertionError(f"vln_dialog: aligned {counts}, the CPU aligns {VLN_EPISODES} from these files")
+    _, fft_len, _, sr = REFERENCE_AUDIO["reference_4k"]  # the tree's irfft length and 1 s of 4 kHz audio
+    wrappers = _kernel_wrappers()
+
+    def counted(name, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        with launch_shapes() as shapes, host_rir_profile() as prof:
+            t0 = time.perf_counter()
+            tr = fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        # one host gather a step (the reset's included): the run's steps
+        part = dict(seconds=seconds, setup_s=tr.setup_seconds, num_envs=tr.env.num_envs,
+                    store=type(tr.env.bank.rir).__name__, host_rir=host_rir_fields(prof, prof.get("calls", 0)),
+                    launches={k: w.launches for k, w in wrappers.items()}, shapes=_shape_counts(shapes))
+        if not isinstance(tr.env.bank.rir, HostRIRStore):
+            raise AssertionError(f"vln_dialog {name}: bank.rir is a {part['store']}")
+        return tr, part, shapes
+
+    covered = avlen_checked_shapes()
+
+    def expect(name, shapes, want):
+        bad = {k: dict(shapes[k]) for k, w in want.items() if dict(shapes[k]) != w}
+        if bad:
+            raise AssertionError(f"vln_dialog {name}: kernel launches {bad}, want {want}")
+        unchecked = {k: sorted(set(shapes[k]) - covered[k]) for k in covered if set(shapes[k]) - covered[k]}
+        if unchecked:
+            raise AssertionError(f"vln_dialog {name}: launch shapes no kernel check covers: {unchecked}")
+
+    # (a) π_l pretraining on the aligned dataset's own instructions
+    served = dict(steps=0, dataset_rows=0, wrong=0, speaker_differs=0)
+    states = []
+    step, update_dialog = BatchedAudioNavEnv.step, Trainer.update_dialog
+
+    def logged_step(self, state, actions, query=None, consts=None):
+        if query is None:  # the dialog rollout's no-query steps
+            states.append(state)
+        return step(self, state, actions, query, consts)
+
+    def checked_update_dialog(self, traj, replay_only=False):
+        t_steps = traj["dialog"].shape[0]
+        eps = torch.stack([s.ep_i for s in states[-t_steps:]])
+        rows = self.sub_instr_bank[eps]
+        has = (rows != 0).any(-1)
+        served["steps"] += t_steps
+        served["dataset_rows"] += int(has.sum())
+        served["wrong"] += int(((traj["dialog"] != rows).any(-1) & has).sum())
+        if self.instr_bank is not None:
+            spk = torch.stack([self.instr_bank[s.scene, s.node, s.rot, s.goal_node] for s in states[-t_steps:]])
+            served["speaker_differs"] += int(((spk != rows).any(-1) & has).sum())
+        return update_dialog(self, traj, replay_only)
+
+    pre_dir = os.path.join(root, "pretrain")
+    shutil.rmtree(pre_dir, ignore_errors=True)
+    BatchedAudioNavEnv.step, Trainer.update_dialog = logged_step, checked_update_dialog
+    try:
+        tr, part, shapes = counted("pretrain", lambda: run.main(
+            ["--run-type", "train", "--exp-config", DIALOG_YAML, "--model-dir", pre_dir, *overrides,
+             "NUM_UPDATES_DIALOG", str(VLN_PRETRAIN_UPDATES), "CHECKPOINT_INTERVAL_DIALOG",
+             str(VLN_PRETRAIN_UPDATES)]))
+    finally:
+        BatchedAudioNavEnv.step, Trainer.update_dialog = step, update_dialog
+    cfg = tr.config
+    n, b, t_steps, m = tr.num_updates_done, tr.env.num_envs, tr.num_steps, cfg.NUM_DIALOG_STEPS
+    totals = dict(tr.timings.totals)
+    vln_ckpt = os.path.join(pre_dir, "data", "vln", "ckpt.0.pth")
+    episodes = tr.env.episodes
+    fields["pretrain"] = dict(
+        part, config=DIALOG_YAML, updates=n, num_steps=t_steps, d_model=cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.hidden_size,
+        clip_width=cfg.RL.PPO.CLIP_WIDTH, clip_layers=cfg.RL.PPO.CLIP_LAYERS,
+        episodes=[dict(sub_instr=e.sub_instr, start=e.start_node, rot=e.start_rot_idx, goal=e.goal_node,
+                       dialog_node=e.dialog_node) for e in episodes],
+        sub_instr_rows=int((tr.sub_instr_bank != 0).any(-1).sum()) if tr.sub_instr_bank is not None else 0,
+        instructions="bank" if tr.instr_source is None else "host speaker", served=served,
+        ms_per_update=totals["superstep_time"] * 1e3 / n, env_steps_per_s=tr.num_steps_done / tr.train_seconds,
+        dialog_loss_first=tr.dialog_losses[0], dialog_loss_last=tr.dialog_losses[-1],
+        checkpoint_bytes=os.path.getsize(vln_ckpt))
+    chunk = ring_eval_chunk(cfg.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, t_steps)
+    losses, width = tr.dialog_losses, tr.goal_policy.net.feature_size + 12  # 288 at d_model 256
+    del tr
+    torch.cuda.empty_cache()
+    expect("pretrain", shapes, {
+        "smt_encode": {(b, m + 1, width): n * t_steps, (chunk * b, m + 1, width): n * (t_steps // chunk)},
+        "partial_irfft": {(b, 2, fft_len): n * t_steps + 1}, "spectrogram": {(b, 2, sr): n * t_steps + 1}})
+    pre = fields["pretrain"]
+    if pre["sub_instr_rows"] != VLN_EPISODES or len(episodes) != VLN_EPISODES:
+        raise AssertionError(f"vln_dialog pretrain: {pre['sub_instr_rows']} sub_instr rows of {len(episodes)}")
+    if served["steps"] != n * t_steps or served["dataset_rows"] != n * t_steps * b or served["wrong"]:
+        raise AssertionError(f"vln_dialog pretrain: served {served} over {n} updates of {t_steps} x {b}")
+    if len(losses) != n or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"vln_dialog pretrain: CE {losses}")
+
+    # (b) AVLEN stage 1 from the aligned tree: train 2 → resume → train 1 → eval
+    model_dir = os.path.join(root, "avlen")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    data = os.path.join(model_dir, "data")
+    opts = ["SPEAKER.CKPT_PATH", speaker_ckpt, "GOAL_CKPT_PATH", goal_ckpt, "VLN_CKPT_PATH", vln_ckpt,
+            "RL.PPO.BELIEF_PREDICTOR.pretrained_path", belief_ckpt, "SPEAKER.BANK_MODE", "bank"]
+
+    def main(*args, run_type="train"):
+        return run.main(["--run-type", run_type, "--exp-config", INTERACTIVE_STAGE1, "--model-dir", model_dir,
+                         *overrides, *opts, *args])
+
+    def stage_fields(tr, part):
+        totals = dict(tr.timings.totals)
+        return dict(part, updates=tr.num_updates_done, num_steps=tr.num_steps, memory_size=tr.memory_size,
+                    loaded=sorted(tr.loaded), instructions="bank" if tr.instr_source is None else "host speaker",
+                    speaker=tr.config.SPEAKER.BACKEND, sub_instr_rows=int((tr.sub_instr_bank != 0).any(-1).sum()),
+                    ms_per_update=totals["superstep_time"] * 1e3 / tr.num_updates_done,
+                    env_steps_per_s=tr.num_updates_done * tr.num_steps * tr.env.num_envs / tr.train_seconds,
+                    checkpoint_bytes=os.path.getsize(list_checkpoints(data)[-1]))
+
+    def stage_want(tr, updates: int):
+        bb, t, mem, chunk_q = tr.env.num_envs, tr.num_steps, tr.memory_size, ring_eval_chunk(
+            tr.config.RL.PPO.SCENE_MEMORY_TRANSFORMER.batched_eval_chunk, tr.num_steps)
+        num_mb = min(tr.ppo_cfg.num_mini_batch, bb)
+        q_rows = chunk_q * (bb // num_mb)
+        g, q = tr.goal_policy.net.feature_size + 12, tr.option_policy.net.feature_size + 12  # 288, 320
+        act = updates * t + 1  # and the first collect's reset observation
+        # a step: π_g, π_q and π_l once each; π_q's bootstrap once a collect;
+        # π_q's update ppo_epoch x minibatches x T/chunk times; no π_l update
+        return {"smt_encode": {(bb, mem + 1, g): updates * t, (bb, mem + 1, q): updates * (t + 1),
+                               (bb, tr.config.NUM_DIALOG_STEPS + 1, g): updates * t,
+                               (q_rows, mem + 1, q): updates * tr.ppo_cfg.ppo_epoch * num_mb * (t // chunk_q)},
+                "partial_irfft": {(bb, 2, fft_len): act}, "spectrogram": {(bb, 2, sr): act}}
+
+    stats, update = [], Trainer.update
+
+    def recorded_update(self, traj, perms=None):
+        out = update(self, traj, perms)
+        stats.append({k: v.item() for k, v in out.items()})
+        return out
+
+    Trainer.update = recorded_update
+    try:
+        tr, part, shapes = counted("stage1", lambda: main("NUM_UPDATES", "2", "CHECKPOINT_INTERVAL", "1"))
+    finally:
+        Trainer.update = update
+    fields["stage1"] = dict(stage_fields(tr, part), stats=stats[:])
+    want1 = stage_want(tr, 2)
+    del tr
+    torch.cuda.empty_cache()
+    expect("stage1", shapes, want1)
+    saved = load_checkpoint(os.path.join(data, "ckpt.1.pth"))
+    checked = {}
+    collect = Trainer.collect
+
+    def first_collect(self, *args, **kwargs):
+        if not checked:
+            checked.update(state_differences(self, saved))
+            checked["num_steps_done"] = self.num_steps_done
+        return collect(self, *args, **kwargs)
+
+    Trainer.collect, Trainer.update = first_collect, recorded_update
+    try:
+        tr, part, shapes = counted("resume", lambda: main("NUM_UPDATES", "1", "RESUME_CHECKPOINT", "True"))
+    finally:
+        Trainer.collect, Trainer.update = collect, update
+    fields["resume"] = dict(stage_fields(tr, part), stats=stats[2:], restored_max_abs_diff=checked,
+                            ckpt2_written=os.path.isfile(os.path.join(data, "ckpt.2.pth")))
+    want_steps = int(saved["extra_state"]["step"])
+    want2 = stage_want(tr, 1)
+    del tr, saved
+    torch.cuda.empty_cache()
+    expect("resume", shapes, want2)
+    with eval_videos_recorded() as rec:
+        ev, part, shapes = counted("eval", lambda: main("USE_LAST_CKPT", "True", "EVAL.SPLIT", "train",
+                                                       "TEST_EPISODE_COUNT", str(VLN_EPISODES), run_type="eval"))
+    expect("eval", shapes, {})
+    ids = ev._last_eval_episode_ids
+    scalars = {k: v[-1][1] for k, v in read_scalars(os.path.join(model_dir, "tb")).items() if k.startswith("val/")}
+    fields["eval"] = dict(part, episodes=len(ids), distinct_ids=len(set(ids)),
+                          episodes_evaluated=scalars.get("val/episodes_evaluated"),
+                          success=scalars.get("val/success"), spl=scalars.get("val/spl"),
+                          videos=video_report(ev.config, rec))
+    del ev
+    torch.cuda.empty_cache()
+    launches = {k: sum(fields[p]["launches"][k] for p in ("pretrain", "stage1", "resume", "eval")) for k in wrappers}
+    fields["launches"] = launches
+    emit("vln_dialog", **fields)
+    s1 = fields["stage1"]
+    if (s1["loaded"], s1["speaker"], s1["sub_instr_rows"]) != (["belief", "dialog", "goal"], "neural", VLN_EPISODES):
+        raise AssertionError(f"vln_dialog stage1: loaded {s1['loaded']}, speaker {s1['speaker']}, "
+                             f"{s1['sub_instr_rows']} sub_instr rows")
+    if checked.get("num_steps_done") != want_steps or any(v != 0 for k, v in checked.items() if k != "num_steps_done"):
+        raise AssertionError(f"vln_dialog: resume did not restore ckpt.1 exactly: {checked}")
+    if not fields["resume"]["ckpt2_written"]:
+        raise AssertionError("vln_dialog: the resumed run wrote no ckpt.2")
+    e = fields["eval"]
+    if not e["episodes"] == e["distinct_ids"] == e["episodes_evaluated"] == VLN_EPISODES:
+        raise AssertionError(f"vln_dialog eval: {e}")
+    check_videos("vln_dialog eval", e["videos"])
+    for p in ("stage1", "resume"):
+        if not all(math.isfinite(v) for v in fields[p].values() if isinstance(v, float)):
+            raise AssertionError(f"vln_dialog {p}: non-finite readings {fields[p]}")
+    if len(stats) != 3 or not all(math.isfinite(v) for st in stats for v in st.values()):
+        raise AssertionError(f"vln_dialog: π_q's update stats {stats}")
+    if not all(launches.values()):
+        raise AssertionError(f"vln_dialog: a kernel never launched: {launches}")
+    return launches
+
 
 PRECISION_BOUND = 0.1  # logits and values: max|low - reference| <= 0.1 * max|reference| (PERF.md §6)
 PRECISION_PROFILE_STEPS = 10  # the profiled collect of each precision's convolution split
@@ -3731,6 +4249,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          per_kernel={name: secs for name, secs, _ in built}, ptxas=ptxas)
     logs = {name: log for name, _, log in built}
+    run_native_build()
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3764,6 +4283,9 @@ def main() -> int:
     for stack in ("avnav", "savi"):
         reference_launches[f"reference_train_{stack}"] = run_reference_train(stack, smi)
     reference_launches["hostrir_savi"] = run_hostrir_savi(dev, smi)
+    reference_launches["frame_cache_savi"] = run_frame_cache_savi(dev, smi)
+    tree_goal_ckpt = list_checkpoints(os.path.join(REFERENCE_DIR, "savi", "data"))[-1]
+    reference_launches["vln_dialog"] = run_vln_dialog(smi, tree_goal_ckpt, belief_ckpt, speaker_ckpt)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)

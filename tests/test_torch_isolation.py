@@ -46,5 +46,26 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models.avwan_policy", "ops.mapping", "sim.mapnav", "rl.trainers.avnav", "rl.trainers.avwan",
                 "dialog.speaker.model", "dialog.speaker.pano_features", "dialog.speaker.train_speaker",
                 "dialog.speaker.eval_speaker", "utils.maps", "utils.video", "data.reference", "sim.mp3d_utils",
-                "sim.graph", "models.layers"):
+                "sim.graph", "models.layers", "native.build", "native.frame_server", "native.graph_engine",
+                "data.vln", "scripts.cache_observations", "scripts.generate_vln_episodes"):
         assert f"avlen_tpu_torch.{sub}" in names, sub
+
+
+def test_native_libraries_are_the_ports_own():
+    """The port compiles its own copies of the native sources
+    (avlen_tpu_torch/native/*.cpp) into build/native/ and loads those; no
+    module or source of the port names the JAX package's native layer."""
+    from avlen_tpu_torch.native import build, load_library
+
+    assert str(build.SRC_DIR) == os.path.join(REPO, "avlen_tpu_torch", "native")
+    assert str(build.BUILD_DIR) == os.path.join(REPO, "build", "native")
+    for name, src in build.SOURCES.items():
+        assert os.path.isfile(os.path.join(REPO, "avlen_tpu_torch", "native", src))
+        path = build.native_lib_path(name)
+        assert os.path.dirname(path) == os.path.join(REPO, "build", "native")
+        assert load_library(name)._name == path
+    for base, _, files in os.walk(os.path.join(REPO, "avlen_tpu_torch")):
+        for f in files:
+            if f.endswith((".py", ".cpp", ".cu", ".cuh")):
+                text = open(os.path.join(base, f), encoding="utf-8").read()
+                assert "avlen_tpu/native" not in text and "avlen_tpu.native" not in text, f

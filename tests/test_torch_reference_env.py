@@ -132,12 +132,6 @@ def test_reference_env_matches_jax(envs):
     assert float(np.abs(out.obs["spectrogram"].numpy()).sum()) > 0  # measured RIRs reach the sensor
 
 
-def test_frame_cache_dir_still_refused():
-    cfg = get_config(SAVI, opts=["TASK_CONFIG.DATASET.FRAME_CACHE_DIR", "frames"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        builder.build_world_from_config(cfg, device="cpu")
-
-
 TINY = [
     "TASK_CONFIG.DATASET.SYNTHETIC.NUM_SCENES", "1",
     "TASK_CONFIG.DATASET.SYNTHETIC.SIDE", "3",
