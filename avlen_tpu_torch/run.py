@@ -10,7 +10,8 @@ ss_baselines/savi/run.py:25-158):
 The trainer is chosen by ``TRAINER_NAME`` from the registry; ``--eval-best``
 names the checkpoint with the best ``val/spl`` in the run's event files.
 ``--device`` is ``cuda`` unless ``cpu`` is asked for; without a card a cuda
-run raises rather than falling back to the CPU.
+run raises rather than falling back to the CPU, and so does a card that
+is not of the Hopper capability the kernels are built for.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ import argparse
 import os
 from typing import List, Optional
 
-import torch
 
 import avlen_tpu_torch.rl.trainers  # noqa: F401  (registers the trainers)
 from avlen_tpu_torch.config import get_config
 from avlen_tpu_torch.core.registry import registry
 from avlen_tpu_torch.utils.logging import logger
+from avlen_tpu_torch.utils.platform import require_device, require_sm90a
 from avlen_tpu_torch.utils.tb import read_scalars
 
 
@@ -50,8 +51,9 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to run on the CPU)")
+    require_device(args.device)
+    if args.device == "cuda":
+        require_sm90a()
 
     config = get_config(
         args.exp_config, args.opts or None, args.model_dir, args.run_type, args.overwrite

@@ -504,6 +504,21 @@ class BatchedAudioNavEnv:
         t = state.step_count.float()
         return torch.stack([-lz, lx, heading, t], dim=1)
 
+    def agent_state_host(self, state: EnvState) -> Dict[str, np.ndarray]:
+        """Each slot's agent state on the host (environments.py:141-157):
+        node, rot, scene, position, goal_node and the geodesic
+        distance_to_goal, as numpy arrays."""
+        tables = self.bank.tables
+        out = {
+            "node": state.node,
+            "rot": state.rot,
+            "scene": state.scene,
+            "position": tables["positions"][state.scene, state.node],
+            "goal_node": state.goal_node,
+            "distance_to_goal": self._dtg_goal(state.scene, state.node, state.goal_node),
+        }
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
     def oracle_action(self, state: EnvState) -> torch.Tensor:
         """Greedy next oracle action (simulator.py:758-787): delta(direction,
         orientation) 0→FWD, 270→LEFT, 90/180→RIGHT; at goal→STOP."""

@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``),
 at first use, into ``build/kernels/`` at the repo root. The file name carries
 a hash of the sources, so an edited kernel is rebuilt and a stale library is
-never loaded. ``build`` starts one nvcc per source, all at once.
+never loaded. ``build`` starts one nvcc per source, all at once. Both
+``build`` and ``load`` first check that the card is of the capability that
+code runs on (``utils/platform.require_sm90a``), so any other card fails
+with its name before a kernel is compiled or loaded.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
+
+from avlen_tpu_torch.utils.platform import require_sm90a
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -51,7 +56,9 @@ def library_path(name: str) -> Path:
 def build(names: Sequence[str] = KERNELS, verbose: bool = False) -> List[Tuple[str, float, str]]:
     """Compile ``names`` in parallel (one nvcc each). Returns (name, seconds,
     compiler output) per kernel; with ``verbose`` the output holds ptxas'
-    register and spill report. Raises if any compile fails."""
+    register and spill report. Raises if any compile fails, or on a card
+    other than sm_90."""
+    require_sm90a()
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -80,6 +87,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if missing."""
     lib = _LOADED.get(name)
     if lib is None:
+        require_sm90a()
         path = library_path(name)
         if not path.exists():
             build([name])

@@ -23,6 +23,8 @@ tree the JAX package would hold, ``{"params": {...}}`` of numpy arrays. The
 checkpoints store that tree, so they interchange with the JAX package.
 ``adam_to_flax``/``load_adam_flax`` keep a ``torch.optim.Adam``'s state in
 trees at the same paths (the port's own optimizer format).
+``load_quesgen_params`` renames the JAX ``QuesGen``'s automatic submodule
+names to the port module's before loading.
 
 ``scene_bank_from_jax(bank, device)`` carries a JAX ``SceneBank`` across:
 tables, sounds, frames and the procedural RIR tails (``tail_noise``,
@@ -113,6 +115,22 @@ def load_flax_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None
     missing = sorted(set(own) - seen)
     if missing:
         raise KeyError(f"parameters not in the Flax tree: {missing}")
+
+
+# the JAX QuesGen's compact submodule names → the port module's attributes
+QUESGEN_NAMES = {"ResNet18_0": "encoder", "Embed_0": "embed", "Dense_0": "w_out", "Dense_1": "cell_in"}
+
+
+def load_quesgen_params(module: torch.nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy the JAX ``QuesGen``'s Flax tree into the port's
+    ``dialog/ques_gen.QuesGen``: Flax's automatic names (``ResNet18_0``,
+    ``Embed_0``, ``Dense_0`` = w_out, ``Dense_1`` = cell_in) become the
+    port's attribute names, then every leaf loads as ``load_flax_params``
+    loads it (Dense kernels transposed, ``Embed.embedding`` to
+    ``Embedding.weight``)."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    load_flax_params(module, {QUESGEN_NAMES[k]: v for k, v in params.items()})
 
 
 def _heads(modules: Dict[str, torch.nn.Module], name: str) -> int:

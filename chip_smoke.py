@@ -216,6 +216,20 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     → train 1 → eval of both episodes), every kernel's launches by shape as
     the configs imply.
 
+23. ``aux_modules`` (after ``vln_dialog``): the small modules and the
+    offline CLIs on the card (``run_aux_modules``): the sm_90a gate;
+    ``benchmark_agent(GoalFollower())`` on savi.yaml's world uncut for 120
+    steps (success 1.0, env-steps/s, one launch of each audio kernel a
+    step, the first step's rows against the plain versions); the
+    ``VectorEnv`` facade over that env for 20 steps with a slot paused for
+    10 (its EnvState bit-frozen, the AVLEN RPCs equal to the env's); the
+    challenge protocol on a 1-env savi.yaml env, ``local_evaluate`` then
+    ``remote_evaluate`` through ``EvaluationServer`` on localhost (the
+    same metrics); and card against CPU: the binaural decode (1e-6), the
+    interactive demo on 14 scripted keys with ``--record`` (frames exact,
+    audio 1e-5 × peak), ``eval_speaker`` (keys; with the CPU's parameters
+    the same JSON and decodes) and ``QuesGen``'s ids.
+
 ``native_build`` (after ``build``) compiles the native host libraries
 (frame server, graph engine) with g++ into ``build/native/``.
 
@@ -228,8 +242,10 @@ with both times and the bound; the irfft and spectrogram checks include
 dialog pretraining's 8 envs and the 44.1 kHz bank's launches (256 and 32
 renders: (·,2,32769) spectra at 65,536 points, the window [1999, 46099);
 (·,2,44100) audio) and the reference tree's (16 envs: (16,2,4097)
-spectra at 8,192 points, the window [199, 4199); (16,2,4000) audio), with
-the library call's time (``torch.fft.irfft`` + slice; ``torch.stft`` for
+spectra at 8,192 points, the window [199, 4199); (16,2,4000) audio) and
+the ``aux_modules`` phase's 1-env rows (``AUX_AUDIO``: the challenge's
+(1,2,32769) spectra at 65,536 points, the demo's (1,2,16385) at 32,768;
+(1,2,16000) audio), with the library call's time (``torch.fft.irfft`` + slice; ``torch.stft`` for
 the transform alone). Then the ``kernels`` summary line (with each
 kernel's launches in every phase), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -744,7 +760,7 @@ def check_irfft(dev, gen, build_log: str):
         del sp, got_n, want_n
     # the reference tree's 4 kHz audio (200-tap RIRs: 8,192 points, one CTA
     # a row), as reference_check and reference_train launch it
-    for case, (b, n, start, length) in REFERENCE_AUDIO.items():
+    for case, (b, n, start, length) in LIBRARY_ROWS.items():
         sp = torch.fft.rfft(torch.randn(b, 2, n, generator=gen, device=dev), dim=-1)
         got_n = irfft_cuda.partial_irfft(sp, n, start, length)
         want_n = irfft_cuda.partial_irfft_plain(sp, n, start, length)
@@ -763,7 +779,7 @@ def check_irfft(dev, gen, build_log: str):
         if not math.isfinite(err_n) or err_n > tol_n:
             raise AssertionError(f"partial_irfft {case} {tuple(sp.shape)}: max abs err {err_n} > {tol_n}")
         cases[f"{case}_rows"] = reference
-    ref_rows = {f"{case}_rows": cases.pop(f"{case}_rows") for case in REFERENCE_AUDIO}
+    ref_rows = {f"{case}_rows": cases.pop(f"{case}_rows") for case in LIBRARY_ROWS}
     bank = {f"{case}_rows": cases.pop(f"{case}_rows") for case in BANK_44K_CASES}
     avlen = {f"{case}_rows": cases.pop(case) for case in AVLEN_AUDIO_ENVS}
     short = {int(case.rsplit("_", 1)[1]): fields for case, fields in cases.items()}
@@ -820,7 +836,7 @@ def check_spectrogram(dev, gen, build_log: str):
         ("short", 3, 8000, 1.0, None),
         *((case, b, 16000, 1.0, None) for case, b in AVLEN_AUDIO_ENVS.items()),
         *((case, b, 44100, 1.0, None) for case, b in BANK_44K_CASES.items()),
-        *((case, rows, out_len, 1.0, None) for case, (rows, _, _, out_len) in REFERENCE_AUDIO.items()),
+        *((case, rows, out_len, 1.0, None) for case, (rows, _, _, out_len) in LIBRARY_ROWS.items()),
     ):
         cfg = SpectrogramConfig(sampling_rate=sr)
         audio = 0.3 * torch.randn(b, 2, sr, generator=gen, device=dev)
@@ -871,12 +887,12 @@ def check_spectrogram(dev, gen, build_log: str):
             if not 0 < per_call <= 1 or any("spectrogram_kernel" not in n for n in names):
                 raise AssertionError(f"spectrogram {case}: {per_call} kernels per call ({names}), want one launch")
         else:
-            if case in AVLEN_AUDIO_ENVS or case in BANK_44K_CASES or case in REFERENCE_AUDIO:
+            if case in AVLEN_AUDIO_ENVS or case in BANK_44K_CASES or case in LIBRARY_ROWS:
                 fields["ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram(audio, cfg))
                 fields["plain_ms"], _ = time_ms(lambda: spectrogram_cuda.spectrogram_plain(audio, cfg))
                 fields["bound_ms"], fields["bound_by"] = bound(*spectrogram_flops_bytes(audio, got, cfg))
                 fields["library_ms"] = None
-                if case in BANK_44K_CASES or case in REFERENCE_AUDIO:
+                if case in BANK_44K_CASES or case in LIBRARY_ROWS:
                     window = device_window(dev, cfg.n_fft, cfg.win_length)
                     flat = audio.reshape(-1, sr)
                     fields["stft_call_ms"], _ = time_ms(lambda: torch.stft(
@@ -903,7 +919,7 @@ def check_spectrogram(dev, gen, build_log: str):
            for case in AVLEN_AUDIO_ENVS},
         **{f"{case}_rows": {k: results[case][k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                                            "stft_call_ms", "bound_ms", "bound_by", "share_of_bound")}
-           for case in (*BANK_44K_CASES, *REFERENCE_AUDIO)},
+           for case in (*BANK_44K_CASES, *LIBRARY_ROWS)},
         ptxas=ptxas)
 
 
@@ -3040,6 +3056,11 @@ REFERENCE_EVAL_EPISODES = 3  # every episode of the tree
 # stage 1's 6 and its eval's 10
 REFERENCE_AUDIO = {"reference_4k": (REFERENCE_ENVS, 8192, 199, 4000), "vln_pretrain_4k": (8, 8192, 199, 4000),
                    "vln_stage1_4k": (6, 8192, 199, 4000), "vln_eval_4k": (10, 8192, 199, 4000)}
+# the aux_modules phase's 1-env rows: the challenge's savi.yaml env (16,000-tap
+# RIRs) and the interactive demo's world (16 kHz, 2,000-tap RIRs)
+AUX_AUDIO = {"challenge_16k": (1, 65536, 15999, 16000), "demo_16k": (1, 32768, 1999, 16000)}
+# the rows the irfft and spectrogram checks time beside the library call
+LIBRARY_ROWS = {**REFERENCE_AUDIO, **AUX_AUDIO}
 HOSTRIR_COMPARE_STEPS = 20
 
 
@@ -3887,6 +3908,317 @@ def run_vln_dialog(smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str
     return launches
 
 
+AUX_DIR = "build/chip_smoke_aux"  # the CLIs' inputs and outputs of the aux_modules phase
+AUX_BENCH_STEPS = 120  # benchmark_agent's batched steps on savi.yaml (at least 100)
+AUX_VENV_STEPS = 20
+AUX_PAUSED = (5, 15)  # the facade's slot AUX_PAUSED_SLOT is paused over steps [5, 15)
+AUX_PAUSED_SLOT = 3
+AUX_CHALLENGE_EPISODES = 3
+# ≥ 10 demo keys: turns, moves, an unknown key, STOP (which ends an
+# episode) and moves in the next episode
+AUX_DEMO_KEYS = ("d", "w", "w", "a", "x", "w", "d", "w", "s", "w", "a", "w", "w", "q")
+AUX_AMBI_TOL = 1e-6  # the binaural decode, card against CPU, abs
+AUX_DEMO_AUDIO_TOL = 1e-5  # the demo's audio, card against CPU, × its peak
+AUX_SPEAKER_ARGS = ("--steps", "2", "--scenes", "1", "--side", "4", "--num-paths", "16")
+
+
+class ObservedOracleAgent:
+    """A challenge agent that acts on its observations alone: it follows the
+    ORACLE_ACTION_SENSOR reading (savi.yaml's task has that sensor)."""
+
+    def reset(self):
+        pass
+
+    def act(self, observations):
+        return int(observations["oracle_action"][0])
+
+
+def _demo_run(device: str, record: str):
+    """The port's interactive demo on ``device``, its keys AUX_DEMO_KEYS
+    from a patched ``input``: (stdout lines, frames, audio, the kernels'
+    launches). The recorder writes its GIF + WAV as well."""
+    import builtins
+    import io
+
+    import numpy as np
+
+    from avlen_tpu_torch.scripts import interactive_demo
+
+    wrappers = _kernel_wrappers()
+    feed = iter(AUX_DEMO_KEYS)
+    rec = {}
+    writer, ask, out = interactive_demo.images_to_video_with_audio, builtins.input, sys.stdout
+
+    def capture(path, images, audio, sampling_rate=16000, fps=10):
+        rec.update(images=[np.array(i) for i in images], audio=np.array(audio))
+        return writer(path, images, audio, sampling_rate, fps)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    text = io.StringIO()
+    interactive_demo.images_to_video_with_audio, builtins.input = capture, (lambda prompt="": next(feed))
+    sys.stdout = text
+    try:
+        interactive_demo.main(["--record", record, "--device", device])
+    finally:
+        interactive_demo.images_to_video_with_audio, builtins.input, sys.stdout = writer, ask, out
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    return text.getvalue().splitlines(), rec["images"], rec["audio"], launches
+
+
+def _eval_speaker_run(device: str, output: str, params=None):
+    """``eval_speaker.main`` on ``device`` at AUX_SPEAKER_ARGS: (the JSON it
+    wrote, its greedy decodes, the speaker's parameters). With ``params``
+    (train_speaker's return of another run) it decodes those in place of
+    its own training."""
+    from avlen_tpu_torch.dialog.speaker import eval_speaker as lib
+    from avlen_tpu_torch.scripts import eval_speaker
+
+    trained, decodes = {}, []
+    train, score = eval_speaker.train_speaker, lib.evaluate_speaker
+
+    def record_train(*a, **k):
+        trained["out"] = params if params is not None else train(*a, **k)
+        return trained["out"]
+
+    def record_decodes(speaker, items, refs, **kw):
+        decodes.extend(o["words"] for o in speaker.generate_instr(items))
+        return score(speaker, items, refs, **kw)
+
+    eval_speaker.train_speaker, lib.evaluate_speaker = record_train, record_decodes
+    try:
+        eval_speaker.main([*AUX_SPEAKER_ARGS, "--output", output, "--device", device])
+    finally:
+        eval_speaker.train_speaker, lib.evaluate_speaker = train, score
+    with open(output) as f:
+        return json.load(f), decodes, trained["out"]
+
+
+def run_aux_modules(dev, smi: str, root: str = AUX_DIR):
+    """``aux_modules``: the port's small modules and offline CLIs on the card.
+
+    (a) the sm_90a gate passes; (b) ``benchmark_agent(GoalFollower())`` on
+    savi.yaml's world uncut (16 envs, 2 scenes, no spectrogram bank: both
+    audio kernels run every step) for AUX_BENCH_STEPS steps: success 1.0,
+    env-steps/s, each kernel's launches (one a step and one for the reset),
+    the first step's audio rows against the plain versions (irfft 1e-5 ×
+    peak, spectrogram 1e-4); (c) the ``VectorEnv`` facade over the same env
+    for AUX_VENV_STEPS oracle steps with slot AUX_PAUSED_SLOT paused over
+    AUX_PAUSED: its EnvState bit-equal across the pause, the AVLEN RPCs equal
+    to the batched env's; (d) ``Benchmark.local_evaluate`` of an agent that
+    acts on its observations over AUX_CHALLENGE_EPISODES episodes of a
+    1-env savi.yaml env, then ``remote_evaluate`` through an
+    ``EvaluationServer`` on localhost: the same metrics (where grpc is not
+    installed, a line says the remote half was not run); (e) the CLIs on the
+    card against the CPU: the binaural decode within 1e-6, the demo's frames
+    exact and its audio within 1e-5 × peak on AUX_DEMO_KEYS, eval_speaker's
+    JSON keys (and, with the CPU's parameters, its JSON and decodes), and
+    ``QuesGen``'s ids at hidden 32. Returns each kernel's launches by part."""
+    import numpy as np
+    import torch
+
+    from avlen_tpu_torch.config import get_config
+    from avlen_tpu_torch.core.challenge import Benchmark, EvaluationServer
+    from avlen_tpu_torch.core.vector_env import VectorEnv
+    from avlen_tpu_torch.dialog.ques_gen import QuesGen, ques_vocabulary
+    from avlen_tpu_torch.scripts import ambisonic_to_binaural
+    from avlen_tpu_torch.sim.builder import construct_batched_env
+    from avlen_tpu_torch.sim.simple_agents import GoalFollower, benchmark_agent
+    from avlen_tpu_torch.utils.platform import require_sm90a
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    wrappers = _kernel_wrappers()
+    audio_kernels = ("partial_irfft", "spectrogram")
+    launches = {}
+
+    def zero():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    # (a) the gate
+    require_sm90a(dev)
+    fields = dict(nvidia_smi=smi, capability=list(torch.cuda.get_device_capability(dev)))
+
+    # (b) benchmark_agent(GoalFollower()) on savi.yaml's world
+    cfg = get_config(SAVI_YAML)
+    t0 = time.perf_counter()
+    env = construct_batched_env(cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b = env.num_envs
+    ends = []
+    step = env.step
+
+    def counted(state, actions, *a, **k):
+        state, out = step(state, actions, *a, **k)
+        ends.append(out.done.sum())
+        return state, out
+
+    env.step = counted
+    zero()
+    with first_kernel_inputs(skip=1) as seen:  # the reset's render, then the first step's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = benchmark_agent(env, GoalFollower(), num_episodes=b * AUX_BENCH_STEPS, max_steps=AUX_BENCH_STEPS)
+        torch.cuda.synchronize()
+        bench_s = time.perf_counter() - t0
+    del env.step
+    launches["benchmark_agent"] = counts()
+    kernels_at = check_kernels_at(seen)
+    steps = len(ends)
+    fields["benchmark_agent"] = dict(
+        config=SAVI_YAML, num_envs=b, scenes=len(env.scene_tables), spectrogram_bank=env.bank.spec_bank is not None,
+        rir_length=env.bank.rir.length, fft_len=env.bank.rir.fft_len, build_s=build_s, steps=steps,
+        episodes=int(sum(int(e) for e in ends)), seconds=bench_s, env_steps_per_s=steps * b / bench_s,
+        stats=stats, launches=launches["benchmark_agent"], kernels_at_first_step=kernels_at)
+
+    # (c) the VectorEnv facade over the same env
+    zero()
+    venv = VectorEnv(env)
+    venv.reset()
+    rpc_ok, frozen, alive_counts = True, None, []
+    slot = AUX_PAUSED_SLOT
+    for t in range(AUX_VENV_STEPS):
+        if t == AUX_PAUSED[0]:
+            venv.pause_at(slot)
+            before = [f.clone() for f in venv._state]
+        if t == AUX_PAUSED[1]:
+            frozen = all(torch.equal(old[slot], new[slot]) for old, new in zip(before, venv._state))
+            venv.resume_all()
+        alive = [i for i in range(b) if i not in venv._paused]
+        st = env.agent_state_host(venv._state)
+        rpc_ok = rpc_ok and all(
+            all(np.array_equal(got[k], st[k][i]) for k in st) for got, i in zip(venv.agent_state(), alive))
+        flags = venv._state.new_episode.cpu().numpy()
+        rpc_ok = rpc_ok and venv.is_new_episode() == [bool(flags[i]) for i in alive]
+        acts = venv.compute_oracle_actions()
+        oracle = env.oracle_action(venv._state).cpu().numpy()
+        rpc_ok = rpc_ok and acts == [int(oracle[i]) for i in alive]
+        alive_counts.append(len(venv.step(acts)))
+    torch.cuda.synchronize()
+    launches["vector_env"] = counts()
+    fields["vector_env"] = dict(steps=AUX_VENV_STEPS, paused_slot=slot, paused_steps=list(AUX_PAUSED),
+                                paused_state_frozen=frozen, rpcs_equal=rpc_ok, alive=alive_counts,
+                                launches=launches["vector_env"])
+    del venv, env
+    torch.cuda.empty_cache()
+
+    # (d) the challenge protocol, local then remote
+    zero()
+    agent = ObservedOracleAgent()
+    t0 = time.perf_counter()
+    local = Benchmark(config=cfg, device=dev).local_evaluate(agent, AUX_CHALLENGE_EPISODES)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    remote, remote_s, grpc_version = None, None, None
+    try:
+        import grpc
+    except ImportError as e:
+        print(f"aux_modules: grpc is not installed on this machine ({e}); the remote half of the "
+              f"challenge was not run", flush=True)
+    else:
+        grpc_version = grpc.__version__
+        t0 = time.perf_counter()
+        server = EvaluationServer(cfg, port=0, num_episodes=AUX_CHALLENGE_EPISODES, device=dev).start()
+        addr = os.environ.get("EVALENV_ADDPORT")
+        os.environ["EVALENV_ADDPORT"] = f"localhost:{server.port}"
+        try:
+            remote = Benchmark(eval_remote=True).evaluate(agent)
+        finally:
+            server.stop(0)
+            if addr is None:
+                del os.environ["EVALENV_ADDPORT"]
+            else:
+                os.environ["EVALENV_ADDPORT"] = addr
+        torch.cuda.synchronize()
+        remote_s = time.perf_counter() - t0
+    launches["challenge"] = counts()
+    fields["challenge"] = dict(episodes=AUX_CHALLENGE_EPISODES, local=local, local_s=local_s, grpc=grpc_version,
+                               remote=remote, remote_s=remote_s, submitted=remote is not None,
+                               launches=launches["challenge"])
+    torch.cuda.empty_cache()
+
+    # (e) the CLIs and QuesGen, card against CPU
+    ambi = np.random.RandomState(0).randn(8, 4, 16000).astype(np.float32)
+    np.save(os.path.join(root, "ambi.npy"), ambi)
+    for device in ("cuda", "cpu"):
+        ambisonic_to_binaural.main(["--input", os.path.join(root, "ambi.npy"), "--output",
+                                    os.path.join(root, f"binaural_{device}"), "--device", device])
+    ambi_err = max(float(np.abs(np.load(os.path.join(root, "binaural_cuda", f"{a}.npy"))
+                                - np.load(os.path.join(root, "binaural_cpu", f"{a}.npy"))).max())
+                   for a in (0, 90, 180, 270))
+    t0 = time.perf_counter()
+    text_c, frames_c, audio_c, launches["demo"] = _demo_run("cuda", os.path.join(root, "demo_cuda.gif"))
+    demo_s = time.perf_counter() - t0
+    text_p, frames_p, audio_p, _ = _demo_run("cpu", os.path.join(root, "demo_cpu.gif"))
+    peak = float(np.abs(audio_p).max())
+    moves = sum(k in "wads" for k in AUX_DEMO_KEYS)
+    demo = dict(keys="".join(AUX_DEMO_KEYS), seconds=demo_s, frames=len(frames_c),
+                frames_equal=len(frames_c) == len(frames_p) and all(np.array_equal(x, y)
+                                                                    for x, y in zip(frames_c, frames_p)),
+                audio_shape=list(audio_c.shape), audio_peak=peak,
+                audio_max_abs_err=float(np.abs(audio_c - audio_p).max()) if audio_c.shape == audio_p.shape else None,
+                episode_ended="=== episode finished:" in "\n".join(text_c),
+                text_equal=[ln for ln in text_c if not ln.startswith("recorded")]
+                == [ln for ln in text_p if not ln.startswith("recorded")], launches=launches["demo"],
+                files={f: os.path.getsize(os.path.join(root, f)) for f in sorted(os.listdir(root))
+                       if f.startswith("demo_")})
+    cpu_json, cpu_words, cpu_params = _eval_speaker_run("cpu", os.path.join(root, "speaker_cpu.json"))
+    card_json, _, _ = _eval_speaker_run("cuda", os.path.join(root, "speaker_cuda.json"))
+    same_json, same_words, _ = _eval_speaker_run("cuda", os.path.join(root, "speaker_cuda_cpu_params.json"),
+                                                 params=cpu_params)
+    speaker = dict(cpu=cpu_json, cuda=card_json, cuda_with_cpu_params=same_json,
+                   keys_equal=list(card_json) == list(cpu_json), json_equal=same_json == cpu_json,
+                   decodes=len(cpu_words), decodes_equal=same_words == cpu_words)
+    vocab = ques_vocabulary()
+    qg = QuesGen(len(vocab), hidden_size=32, max_len=5, generator=torch.Generator().manual_seed(0))
+    rgb = torch.as_tensor((np.random.RandomState(1).rand(8, 32, 32, 3) * 255).astype(np.uint8))
+    ids_cpu = qg(rgb)
+    ids_card = qg.to(dev)(rgb.to(dev)).cpu()
+    fields["clis"] = dict(ambisonic_max_abs_err=ambi_err, demo=demo, eval_speaker=speaker,
+                          ques_gen=dict(shape=list(ids_cpu.shape), ids_equal=bool(torch.equal(ids_cpu, ids_card))))
+    fields["launches"] = launches
+    fields["seconds"] = time.perf_counter() - t_phase
+    emit("aux_modules", **fields)
+
+    fails = []
+    bench = fields["benchmark_agent"]
+    if bench["spectrogram_bank"] or stats.get("success") != 1.0 or steps < 100:
+        fails.append(f"benchmark_agent: bank {bench['spectrogram_bank']}, success {stats.get('success')}, "
+                     f"{steps} steps")
+    if launches["benchmark_agent"] != {"smt_encode": 0, **{k: steps + 1 for k in audio_kernels}}:
+        fails.append(f"benchmark_agent launches {launches['benchmark_agent']}, want {steps + 1} of each audio kernel")
+    if set(kernels_at) != set(audio_kernels) or not all(r["ok"] for r in kernels_at.values()):
+        fails.append(f"benchmark_agent: the first step's kernels against their plain versions {kernels_at}")
+    if not frozen or not rpc_ok or launches["vector_env"] != {"smt_encode": 0, **{k: AUX_VENV_STEPS + 1
+                                                                                 for k in audio_kernels}}:
+        fails.append(f"vector_env: frozen {frozen}, RPCs equal {rpc_ok}, launches {launches['vector_env']}")
+    if local.get("success") != 1.0 or (remote is not None and remote != local):
+        fails.append(f"challenge: local {local}, remote {remote}")
+    if not all(launches["challenge"][k] > AUX_CHALLENGE_EPISODES for k in audio_kernels):
+        fails.append(f"challenge launches {launches['challenge']}")
+    if ambi_err > AUX_AMBI_TOL:
+        fails.append(f"ambisonic_to_binaural: card against CPU {ambi_err}")
+    if not (demo["frames_equal"] and demo["episode_ended"] and demo["audio_max_abs_err"]
+            is not None and demo["audio_max_abs_err"] <= AUX_DEMO_AUDIO_TOL * peak):
+        fails.append(f"interactive_demo: {demo}")
+    if launches["demo"] != {"smt_encode": 0, **{k: moves + 1 for k in audio_kernels}}:
+        fails.append(f"interactive_demo launches {launches['demo']}, want {moves + 1} of each audio kernel")
+    if not (speaker["keys_equal"] and speaker["json_equal"] and speaker["decodes_equal"]):
+        fails.append(f"eval_speaker: {speaker}")
+    if not fields["clis"]["ques_gen"]["ids_equal"]:
+        fails.append("ques_gen: card ids differ from the CPU's")
+    if fails:
+        raise AssertionError("aux_modules: " + "; ".join(fails))
+    return {part: {k: c[k] for k in wrappers} for part, c in launches.items()}
+
+
 PRECISION_BOUND = 0.1  # logits and values: max|low - reference| <= 0.1 * max|reference| (PERF.md §6)
 PRECISION_PROFILE_STEPS = 10  # the profiled collect of each precision's convolution split
 PRECISION_AVLEN_STEPS = 20  # the AVLEN stage-2 collect at each precision
@@ -3898,18 +4230,21 @@ PRECISION_KERNEL_TOL = {"smt_encode": 1e-4, "partial_irfft": 1e-5, "spectrogram"
 
 
 @contextlib.contextmanager
-def first_kernel_inputs():
-    """Within the block, clones of the inputs of each kernel's first launch:
-    {"smt_encode": (entries, valid, goal, weights, nhead), "partial_irfft":
-    (spec, fft_len, out_start, out_len), "spectrogram": (audio, config)}.
+def first_kernel_inputs(skip: int = 0):
+    """Within the block, clones of the inputs of each kernel's first launch
+    after its first ``skip``: {"smt_encode": (entries, valid, goal, weights,
+    nhead), "partial_irfft": (spec, fft_len, out_start, out_len),
+    "spectrogram": (audio, config)}, for the kernels the block launches.
     The launches themselves and their counts are untouched."""
     from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
 
     seen = {}
+    calls = collections.Counter()
     irfft_launch, spec_launch = irfft_cuda._launch, spectrogram_cuda._launch
 
     def keep(name, args):
-        if name not in seen:
+        calls[name] += 1
+        if name not in seen and calls[name] > skip:
             seen[name] = tuple(a.clone() if hasattr(a, "clone") else
                                [w.detach().clone() for w in a] if isinstance(a, (list, tuple)) else a for a in args)
 
@@ -3937,19 +4272,20 @@ def first_kernel_inputs():
 
 
 def check_kernels_at(seen):
-    """Each kernel against its plain version on the captured inputs."""
+    """Each captured kernel against its plain version on its inputs."""
     import torch
 
     from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
 
     out = {}
     with torch.no_grad():
-        entries, valid, goal, weights, nhead = seen["smt_encode"]
-        params = dict(zip(smt_cuda.KERNEL_WEIGHTS, weights))
-        got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
-        want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
-        out["smt_encode"] = dict(shape=list(entries.shape), entries_dtype=str(entries.dtype),
-                                 max_abs_err=(got - want).abs().max().item())
+        if "smt_encode" in seen:
+            entries, valid, goal, weights, nhead = seen["smt_encode"]
+            params = dict(zip(smt_cuda.KERNEL_WEIGHTS, weights))
+            got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
+            want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
+            out["smt_encode"] = dict(shape=list(entries.shape), entries_dtype=str(entries.dtype),
+                                     max_abs_err=(got - want).abs().max().item())
         spec, fft_len, start, length = seen["partial_irfft"]
         got = irfft_cuda.partial_irfft(spec, fft_len, start, length)
         want = irfft_cuda.partial_irfft_plain(spec, fft_len, start, length)
@@ -4211,6 +4547,8 @@ def run_precision(dev, smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt:
         shares = {k: v for k, v in fields[key].items() if k.endswith("share_of_peak")}
         if not all(v <= PRECISION_BOUND for v in shares.values()):
             raise AssertionError(f"precision: {key} {shares} over the bound {PRECISION_BOUND}")
+    if set(fields["kernels_at_bf16_inputs"]) != set(_kernel_wrappers()):
+        raise AssertionError(f"precision: kernels checked on bf16 inputs {sorted(fields['kernels_at_bf16_inputs'])}")
     off = {k: r for k, r in fields["kernels_at_bf16_inputs"].items() if not r["ok"]}
     if off:
         raise AssertionError(f"precision: kernels disagree with their plain versions on bf16 inputs: {off}")
@@ -4286,6 +4624,7 @@ def main() -> int:
     reference_launches["frame_cache_savi"] = run_frame_cache_savi(dev, smi)
     tree_goal_ckpt = list_checkpoints(os.path.join(REFERENCE_DIR, "savi", "data"))[-1]
     reference_launches["vln_dialog"] = run_vln_dialog(smi, tree_goal_ckpt, belief_ckpt, speaker_ckpt)
+    aux_launches = run_aux_modules(dev, smi)
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4321,6 +4660,7 @@ def main() -> int:
          "launches_avwan_train": baseline_launches["avwan"][name],
          **{f"launches_{phase}": counts[name] for phase, counts in reference_launches.items()},
          "launches_precision": {run: counts[name] for run, counts in precision_launches.items()},
+         "launches_aux_modules": {part: counts[name] for part, counts in aux_launches.items()},
          **results[name],
          "status": "ok"}
         for name in meta
