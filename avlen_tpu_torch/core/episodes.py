@@ -244,6 +244,14 @@ class EpisodeStreamer:
         ]
         self._last_cursors = np.zeros((num_envs,), np.int64)
 
+    def keep_slots(self, lo: int, hi: int) -> None:
+        """Stream only slots [lo, hi), renumbered from 0 (a DD-PPO rank's
+        share; each keeps its own iterator and seed)."""
+        self._iters = self._iters[lo:hi]
+        self._pending = self._pending[lo:hi]
+        self._last_cursors = self._last_cursors[lo:hi]
+        self.num_envs = hi - lo
+
     def initial_order(self) -> np.ndarray:
         """(B, per) order for env.reset (cursor starts at 0)."""
         return np.asarray(self._pending, np.int32)

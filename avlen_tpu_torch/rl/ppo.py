@@ -119,6 +119,20 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], config: PPOConfig) -> _
     return _PPOOptimizer(params, config)
 
 
+def optimizer_params(optimizer) -> Sequence[torch.nn.Parameter]:
+    """The parameters an optimizer steps: ``make_optimizer``'s ``params``,
+    or a ``torch.optim`` optimizer's param groups."""
+    if isinstance(optimizer, _PPOOptimizer):
+        return optimizer.params
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def identity_grad_reduce(params: Sequence[torch.nn.Parameter]) -> None:
+    """The default ``grad_reduce``: one process, nothing to average. DD-PPO
+    passes ``parallel.ddppo.all_reduce_mean_grads`` over its mesh, which
+    averages the parameters' ``.grad`` in place (JAX's ``lax.pmean``)."""
+
+
 def ppo_loss(
     evaluate_actions: Callable,  # (obs (T,Bm,..), h0, masks, actions) -> (v, lp, ent, logits)
     obs,
@@ -168,11 +182,14 @@ def ppo_update(
     config: PPOConfig,
     generator: Optional[torch.Generator] = None,
     perms: Optional[Sequence] = None,
+    grad_reduce: Callable = identity_grad_reduce,
 ) -> Dict[str, torch.Tensor]:
     """One PPO update in place on the optimizer's parameters. Each epoch
     draws a fresh permutation of the B env slots from ``generator`` (a CPU
     generator), or takes ``perms[epoch]``, and cuts it into ``min(
-    num_mini_batch, B)`` minibatches of ``B // that`` slots. Returns the
+    num_mini_batch, B)`` minibatches of ``B // that`` slots. Each
+    minibatch's gradients go through ``grad_reduce`` (the optimizer's
+    parameters) before the clip and the Adam step, as in JAX. Returns the
     losses averaged over the ``ppo_epoch × num_mb`` steps, as tensors."""
     t, b = batch.actions.shape
     num_mb = min(config.num_mini_batch, b)
@@ -207,6 +224,7 @@ def ppo_update(
                 config,
             )
             loss.backward()
+            grad_reduce(optimizer_params(optimizer))
             optimizer.step()
             for k in sums:
                 sums[k] += aux[k].detach()

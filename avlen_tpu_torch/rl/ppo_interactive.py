@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from avlen_tpu_torch.models.memory import SMTMemory, insert, reset_where
-from avlen_tpu_torch.rl.ppo import PPOConfig, _select0
+from avlen_tpu_torch.rl.ppo import PPOConfig, _select0, identity_grad_reduce, optimizer_params
 from avlen_tpu_torch.rl.rollout_smt import batched_ring_eval
 
 DIALOG_CLASS_WEIGHTS = (0.0, 1.0 / 3, 1.0 / 3, 1.0 / 3)
@@ -113,11 +113,13 @@ def ppo_update_interactive(
     perms: Optional[Sequence] = None,
     batched_chunk: int = 0,
     compute_dtype: Optional[torch.dtype] = None,
+    grad_reduce: Callable = identity_grad_reduce,
 ) -> Dict[str, torch.Tensor]:
     """One π_q PPO update in place on the optimizer's parameters. Each epoch
     draws a permutation of the B env slots from ``generator`` (a CPU
     generator) or takes ``perms[epoch]``, cut into ``min(num_mini_batch, B)``
-    minibatches. ``batched_chunk`` > 0 re-evaluates that many steps a call,
+    minibatches, each one's gradients through ``grad_reduce`` before the
+    step. ``batched_chunk`` > 0 re-evaluates that many steps a call,
     the ring views' pool cast to ``compute_dtype`` (TPU.PRECISION). Returns
     value_loss, action_loss, entropy and unct_loss averaged over the
     optimizer steps, as tensors."""
@@ -170,6 +172,7 @@ def ppo_update_interactive(
 
             optimizer.zero_grad()
             total.backward()
+            grad_reduce(optimizer_params(optimizer))
             optimizer.step()
             for k, x in (("value_loss", value_loss), ("action_loss", action_loss), ("entropy", ent_mean),
                          ("unct_loss", unct_loss)):
@@ -273,11 +276,13 @@ def dialog_supervised_update(
     replay_only: bool = True,
     batched_chunk: int = 0,
     compute_dtype: Optional[torch.dtype] = None,
+    grad_reduce: Callable = identity_grad_reduce,
 ) -> torch.Tensor:
     """One optimizer step of π_l's class-weighted CE against the oracle
     actions over the whole trajectory (update_dialog, savi/ppo/ppo.py:
-    99-154). The stored ``dialog_clip`` embeddings stand for the frozen
-    CLIP tower, which gets no gradient. Returns the loss."""
+    99-154), its gradients through ``grad_reduce`` before the step. The
+    stored ``dialog_clip`` embeddings stand for the frozen CLIP tower, which
+    gets no gradient. Returns the loss."""
     args = (traj["obs"], traj["feat_vln"], traj["feat_vln_dialog"], traj["dialog"], traj["agent_step"],
             traj["masks_vln"], traj["o_action"], traj["initial_memories"][2], traj["initial_memories"][3])
     if batched_chunk > 0:
@@ -289,5 +294,6 @@ def dialog_supervised_update(
     loss = dialog_loss(logits, traj, replay_only)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    grad_reduce(optimizer_params(optimizer))
     optimizer.step()
     return loss.detach()

@@ -11,10 +11,11 @@ The rollout is the eager ``collect_rollout`` and the update the eager
 the Flax tree the JAX package holds; the optimizer state is the port's own.
 
 ``TPU.PRECISION`` is the CNNs' compute dtype (``compute_dtype``), as in
-JAX; the GRU and the heads stay float32. The port trains on one device, so
-the JAX trainer's device-mesh branch has no counterpart; a torch step reads
-host-served RIRs directly, so the chunked host-prefetch audio path has none
-either.
+JAX; the GRU and the heads stay float32. ``train`` runs data-parallel
+over the ranks of a process group, as the JAX trainer's device-mesh
+branch does: its ``collect`` and ``update`` go through the trainers' one
+superstep (``BaseRLTrainer.superstep``, ``parallel/ddppo.py``). A torch step reads host-served RIRs directly, so the chunked host-prefetch
+audio path has no counterpart.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from avlen_tpu_torch.core.registry import registry
 from avlen_tpu_torch.models.policy import AudioNavBaselineNet, Policy
 from avlen_tpu_torch.rl.gae import compute_gae
-from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
+from avlen_tpu_torch.rl.ppo import identity_grad_reduce, make_optimizer, ppo_config_from, ppo_update
 from avlen_tpu_torch.rl.rollout import CarryState, RolloutBatch, collect_rollout
 from avlen_tpu_torch.rl.trainers.base import (
     BaseRLTrainer,
@@ -69,17 +70,21 @@ class AVNavTrainer(BaseRLTrainer):
         gen = torch.Generator(device="cpu").manual_seed(cfg.SEED)
         self.policy = self._make_policy(gen, dtype).to(self.device)
         self.optimizer = make_optimizer(self.policy.parameters(), self.ppo_cfg)
-        self.sample_generator = torch.Generator(device=self.device).manual_seed(cfg.SEED)
+        self.sample_generator = torch.Generator(device=self.device).manual_seed(self.rank_seed(cfg.SEED))
         # the minibatch permutations (the JAX trainer's PRNGKey(SEED + 1))
-        self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
+        self.ppo_generator = torch.Generator(device="cpu").manual_seed(self.rank_seed(cfg.SEED + 1))
         self.carry = self.reset()
         self._setup_done = True
         self.setup_seconds = time.perf_counter() - t0
 
+    def trained_modules(self):
+        return [self.policy]
+
     def _make_env(self, num_envs: Optional[int]):
         cfg = self.config
         return construct_batched_env(cfg, num_envs=num_envs, with_depth=True,
-                                     with_rgb="RGB_SENSOR" in cfg.SENSORS and not cfg.EXTRA_RGB, device=self.device)
+                                     with_rgb="RGB_SENSOR" in cfg.SENSORS and not cfg.EXTRA_RGB, device=self.device,
+                                     slots=self.env_slots(num_envs or cfg.NUM_PROCESSES))
 
     def _make_policy(self, gen: torch.Generator, dtype: torch.dtype = torch.float32) -> Policy:
         """The policy, initialised from ``gen``, sized to ``self.env``, its
@@ -136,15 +141,17 @@ class AVNavTrainer(BaseRLTrainer):
     def evaluate_actions(self, obs, hidden, masks, actions):
         return self.policy.evaluate_actions(obs, hidden, masks, actions)
 
-    def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+    def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None,
+               grad_reduce=identity_grad_reduce) -> Dict[str, torch.Tensor]:
         """GAE and one PPO update on ``batch``, in place on the parameters;
         ``perms`` (one permutation of the env slots per epoch) replaces the
-        draws from the PPO generator. Returns the averaged losses as tensors."""
+        draws from the PPO generator, ``grad_reduce`` acts before each step.
+        Returns the averaged losses as tensors."""
         cfg = self.ppo_cfg
         adv, ret = compute_gae(batch.rewards, batch.values, batch.bootstrap_value,
                                1.0 - batch.dones.float(), cfg.gamma, cfg.tau)
         return ppo_update(batch, adv, ret, self.evaluate_actions, self.optimizer, cfg,
-                          generator=self.ppo_generator, perms=perms)
+                          generator=self.ppo_generator, perms=perms, grad_reduce=grad_reduce)
 
     # ------------------------------------------------------------------
     def steps_per_rollout_step(self) -> int:
@@ -153,18 +160,21 @@ class AVNavTrainer(BaseRLTrainer):
 
     def train(self) -> None:
         """NUM_UPDATES rounds of collect + update (ppo_trainer.py:372-460):
-        resume first (RESUME_CHECKPOINT: the interrupted state, else the
-        newest checkpoint; the loop then starts again at update 0, as in the
-        JAX trainer), the window's ``Metrics/*`` and the losses' ``Policy/*``
-        every LOG_INTERVAL updates, a checkpoint every CHECKPOINT_INTERVAL
-        updates and at the last. Timings ``collect_time``, ``update_time``
-        (each ending in a device synchronise), ``host_time`` and
-        ``checkpoint_time``; ``train_seconds`` is the loop's wall time."""
-        self.ensure_setup()
+        resume first (RESUME_CHECKPOINT: the
+        interrupted state, else the newest checkpoint; the loop then starts
+        again at update 0, as in the JAX trainer), the window's
+        ``Metrics/*`` (every rank's envs) and the losses' ``Policy/*``
+        (averaged over ranks) every LOG_INTERVAL updates, a checkpoint every
+        CHECKPOINT_INTERVAL updates and at the last. Timings
+        ``collect_time``, ``update_time`` (each ending in a device
+        synchronise), ``host_time`` and ``checkpoint_time``;
+        ``train_seconds`` is the loop's wall time."""
+        if not self.begin_train():
+            return
         cfg = self.config
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
-        window = EpisodeWindow(self.env.num_envs, cfg.RL.PPO.reward_window_size)
+        window = EpisodeWindow(cfg.NUM_PROCESSES if self.mesh else self.env.num_envs, cfg.RL.PPO.reward_window_size)
         t_start = time.time()
         ckpt_count = 0
         preemption.register_signal_handlers()
@@ -172,20 +182,25 @@ class AVNavTrainer(BaseRLTrainer):
         resume = self.try_to_resume()
         if resume is not None:
             self.restore(resume)
+            self.broadcast_parameters()
             ckpt_count = int(resume.get("_resume_index", 0))
 
-        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
+        def collect(_, carry):
+            return self.collect(carry)
+
+        def update(_, batch, key, grad_reduce):
+            return None, self.update(batch, grad_reduce=grad_reduce)
+
+        superstep = self.superstep(collect, update, timings)
+        with TensorboardWriter(self.tensorboard_dir()) as writer:
             for update in range(cfg.NUM_UPDATES):
-                if self.preemption_poll == "before" and self._preempted():
+                if self.preemption_poll == "before" and self.preempted():
                     break
-                with timings.time("collect_time"):
-                    _, batch = self.collect()
-                    self._sync()
-                with timings.time("update_time"):
-                    stats = {k: float(v) for k, v in self.update(batch).items()}
+                _, self.carry, batch, stats = superstep(None, self.carry)
+                stats = {k: float(v) for k, v in stats.items()}
                 self.carry = self._refresh_episode_stream(self.carry)
                 with timings.time("host_time"):
-                    self.num_steps_done += window.add(batch) * self.steps_per_rollout_step()
+                    self.num_steps_done += window.add(self.window_view(batch)) * self.steps_per_rollout_step()
                 self.num_updates_done += 1
 
                 if update % cfg.LOG_INTERVAL == 0:
@@ -201,20 +216,11 @@ class AVNavTrainer(BaseRLTrainer):
                 # every CHECKPOINT_INTERVAL updates (ddppo_trainer.py:1191)
                 if (update + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update + 1 == cfg.NUM_UPDATES:
                     with timings.time("checkpoint_time"):
-                        self.save_checkpoint(f"ckpt.{ckpt_count}.pth")
+                        self.checkpoint(f"ckpt.{ckpt_count}.pth")
                     ckpt_count += 1
-                if self.preemption_poll == "after" and self._preempted():
+                if self.preemption_poll == "after" and self.preempted():
                     break
         self.train_seconds = time.time() - t_start
-
-    def _preempted(self) -> bool:
-        """On a pending preemption signal: the interrupted state saved, the
-        job requeued, True (ddp_utils.py:70-122)."""
-        if not preemption.should_exit():
-            return False
-        preemption.save_interrupted_state(self._checkpoint_payload())
-        preemption.requeue_job()
-        return True
 
     def restore(self, ckpt: Dict[str, Any]) -> None:
         """Parameters, the Adam state, the LR decay's step count and

@@ -44,7 +44,8 @@ class AVWanTrainer(AVNavTrainer):
             am_size=tc.ACOUSTIC_MAP.MAP_SIZE,
             prediction_interval=cfg.PREDICTION_INTERVAL,
         )
-        return BatchedMapNavEnv(construct_batched_env(cfg, num_envs=num_envs, with_depth=True, device=self.device),
+        return BatchedMapNavEnv(construct_batched_env(cfg, num_envs=num_envs, with_depth=True, device=self.device,
+                                                      slots=self.env_slots(num_envs or cfg.NUM_PROCESSES)),
                                 map_cfg)
 
     def _make_policy(self, gen: torch.Generator, dtype: torch.dtype = torch.float32) -> AVWanPolicy:

@@ -5,22 +5,28 @@ with BaseTrainer/BaseRLTrainer, ss_baselines/common/base_trainer.py:
 22-289): ``train()`` / ``eval()`` entry points, checkpoint folder polling
 during eval, the eval-config merge priority (current EVAL opts over the
 checkpoint's saved config, base_trainer.py:125-158), resume, and the
-exactly-once eval bookkeeping, and the eval's top-down-map videos. The
-JAX package's device mesh and buffer donation belong to multi-card
-training (ROADMAP Queue 1 item 6) and to the TPU.
+exactly-once eval bookkeeping, and the eval's top-down-map videos; and
+DD-PPO's rules (``_make_train_mesh``, JAX's ``base.py:128-148``): under a
+process group of more than one rank each rank trains its share of the env
+slots (``parallel/ddppo.py``), rank 0 alone writes event files, logs,
+checkpoints and the interrupted state, and every rank stops at the same
+update on a preemption request. Buffer donation is the TPU's alone.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from avlen_tpu_torch.config.node import ConfigNode
 from avlen_tpu_torch.models.layers import precision_dtype
+from avlen_tpu_torch.parallel import ddppo
+from avlen_tpu_torch.parallel.mesh import Mesh, make_mesh, world
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
 from avlen_tpu_torch.utils.logging import logger
@@ -137,6 +143,125 @@ class BaseRLTrainer:
         self.num_updates_done = 0
         self.num_steps_done = 0
         self._setup_done = False
+        # the data-parallel mesh of a train run (None: one process trains)
+        self.mesh: Optional[Mesh] = None
+        self.sits_out = False
+
+    # -- DD-PPO ------------------------------------------------------------
+    def _make_train_mesh(self, num_envs: int) -> Optional[Mesh]:
+        """The data-parallel mesh from TPU.MESH_AXES/SHAPE over the ranks of
+        the process group, by JAX's rules: None (single-device training) on
+        one rank, or when ``num_envs`` does not divide over the mesh (with
+        JAX's warning; ``self.sits_out`` is then set on ranks > 0, which
+        train nothing). A mesh of fewer ranks than the group, or one that
+        shards another axis, raises ``ValueError``."""
+        rank, world_size = world()
+        self.sits_out = False
+        if world_size <= 1:
+            return None
+        tpu_cfg = self.config.TPU
+        mesh = make_mesh(tuple(tpu_cfg.MESH_AXES), tuple(tpu_cfg.MESH_SHAPE))
+        if mesh.size != world_size or any(
+                size > 1 for name, size in zip(mesh.axis_names, mesh.shape) if name != "data"):
+            raise ValueError(f"TPU.MESH_SHAPE {list(mesh.shape)} over {list(mesh.axis_names)}: the port "
+                             f"shards the 'data' axis over all {world_size} ranks of the process group")
+        n = mesh.size
+        if num_envs % n != 0:
+            logger.warning(
+                f"num_envs={num_envs} not divisible by mesh size {n}; "
+                "falling back to single-device training"
+            )
+            self.sits_out = rank > 0
+            return None
+        logger.info(f"data-parallel training over {n} ranks: {dict(zip(mesh.axis_names, mesh.shape))}")
+        return mesh
+
+    def begin_train(self) -> bool:
+        """The mesh of this train run and the setup under it (again, if an
+        earlier setup saw all env slots), parameters from rank 0. False on a
+        rank that sits the run out."""
+        mesh = self._make_train_mesh(self.config.NUM_PROCESSES)
+        if self.sits_out:
+            return False
+        if mesh is not None and self._setup_done and mesh != self.mesh:
+            self._setup_done = False
+        self.mesh = mesh
+        self.ensure_setup()
+        self.broadcast_parameters()
+        return True
+
+    @property
+    def is_rank0(self) -> bool:
+        return world()[0] == 0
+
+    def env_slots(self, num_envs: int):
+        """This rank's env slots of a packing of ``num_envs``, None without
+        a mesh."""
+        return ddppo.env_slots(num_envs, self.mesh) if self.mesh is not None else None
+
+    def rank_seed(self, seed: int) -> int:
+        return ddppo.rank_seed(seed, self.mesh)
+
+    def trained_modules(self):
+        """The modules whose parameters the train run keeps equal on every
+        rank (overridden by trainers)."""
+        return []
+
+    def broadcast_parameters(self) -> None:
+        ddppo.broadcast_modules(self.trained_modules(), self.mesh)
+
+    def global_view(self, tree, num_steps: int):
+        """``tree``'s (T, B)-leading and B-leading leaves over all ranks'
+        env slots (rank 0's log reads every env, as JAX's host does); the
+        tree itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        specs = ddppo.infer_env_specs(tree, self.env.num_envs, num_steps)
+        return ddppo.gather_pytree(tree, specs, self.mesh)
+
+    def window_view(self, batch: RolloutBatch) -> RolloutBatch:
+        """``batch`` with the rewards, dones and metrics that the episode
+        window reads over every rank's env slots."""
+        view = {"rewards": batch.rewards, "dones": batch.dones, "metrics": batch.metrics}
+        return batch._replace(**self.global_view(view, batch.rewards.shape[0]))
+
+    def superstep(self, collect, update, timings):
+        """``parallel.ddppo``'s superstep over the trainer's mesh, its
+        collect and update timed into ``timings`` (each ending in a device
+        synchronise)."""
+        return ddppo.make_superstep(collect, update, self.mesh, timer=self._timer(timings))
+
+    def _timer(self, timings):
+        @contextlib.contextmanager
+        def timed(name: str) -> Iterator[None]:
+            with timings.time(name):
+                yield
+                self._sync()
+
+        return timed
+
+    def preempted(self) -> bool:
+        """On a preemption request on any rank: rank 0 saves the interrupted
+        state and requeues the job, and every rank returns True at the same
+        update (ddp_utils.py:70-122)."""
+        from avlen_tpu_torch.utils import preemption
+
+        if not ddppo.any_rank(preemption.should_exit(), self.mesh, self.device):
+            return False
+        if self.is_rank0:
+            preemption.save_interrupted_state(self._checkpoint_payload())
+            preemption.requeue_job()
+        return True
+
+    def checkpoint(self, name: str) -> None:
+        """``save_checkpoint`` on rank 0, then every rank waits for it."""
+        if self.is_rank0:
+            self.save_checkpoint(name)
+        ddppo.barrier(self.mesh)
+
+    def tensorboard_dir(self) -> Optional[str]:
+        """The event files' directory on rank 0, None (no writer) on others."""
+        return self.config.TENSORBOARD_DIR if self.is_rank0 else None
 
     def _setup(self, num_envs=None) -> None:  # overridden by trainers
         raise NotImplementedError

@@ -23,9 +23,10 @@ ss_baselines/savi/ddppo/algo/ddppo_trainer.py:62-1200):
   class-weighted CE over every step), checkpoints under ``vln/``, and an
   eval of π_l's accuracy and CE against the oracle.
 
-The JAX package's device mesh belongs to DD-PPO (ROADMAP Queue 1 item 6)
-and to the TPU. Its chunked host-prefetch collect is a workaround for
-backends without host callbacks: the eager rollout reads host-served RIRs
+Both train loops run data-parallel over the ranks of a process group
+(``parallel/ddppo.py``), π_q's and π_l's gradients each averaged before
+their optimizer's step, as the JAX trainer's mesh branch does. Its chunked
+host-prefetch collect is a workaround for backends without host callbacks: the eager rollout reads host-served RIRs
 and calls the host speaker directly, which also serves SPEAKER.BANK_MODE
 cached where JAX allows it. ``TPU.PRECISION`` is the towers' compute dtype
 (``compute_dtype``) in all three policies and the belief predictor.
@@ -53,8 +54,9 @@ from avlen_tpu_torch.models.dialog_policy import AudioNavDialogNet, DialogPolicy
 from avlen_tpu_torch.models.memory import init_memory
 from avlen_tpu_torch.models.option_policy import AudioNavOptionNet, OptionPolicy
 from avlen_tpu_torch.models.smt_policy import AudioNavSMTNet, SMTPolicy
+from avlen_tpu_torch.parallel import ddppo
 from avlen_tpu_torch.rl.gae import compute_gae
-from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from
+from avlen_tpu_torch.rl.ppo import identity_grad_reduce, make_optimizer, ppo_config_from
 from avlen_tpu_torch.rl.ppo_interactive import dialog_supervised_update, ppo_update_interactive
 from avlen_tpu_torch.rl.rollout_interactive import (
     InteractiveCarry,
@@ -112,8 +114,8 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         self.env = construct_batched_env(
             cfg, num_envs=num_envs, with_depth=True, with_rgb=True,
             extra_sensors=("category_belief", "location_belief", "category"), device=dev,
+            slots=self.env_slots(num_envs or cfg.NUM_PROCESSES),
         )
-        b = self.env.num_envs
 
         # oracle instructions: the token bank (built on the host, moved to
         # the card once) or the host speaker per query
@@ -205,13 +207,16 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
             dist_alpha=cfg.RL.ALPHA,
             dist_beta=cfg.RL.BETA,
         )
-        self.sample_generator = torch.Generator(device=dev).manual_seed(cfg.SEED)
+        self.sample_generator = torch.Generator(device=dev).manual_seed(self.rank_seed(cfg.SEED))
         # π_q's minibatch permutations (the JAX trainer's key(SEED + 1))
-        self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
+        self.ppo_generator = torch.Generator(device="cpu").manual_seed(self.rank_seed(cfg.SEED + 1))
         self.clip_calls = 0  # frozen CLIP tower runs in collects
         self.carry = self.reset()
         self._setup_done = True
         self.setup_seconds = time.perf_counter() - t0
+
+    def trained_modules(self):
+        return [self.goal_policy, self.dialog_policy, self.option_policy, self.belief_net]
 
     def reset(self, order=None, consts: Optional[Dict[str, torch.Tensor]] = None) -> InteractiveCarry:
         """A fresh carry: every env slot at the start of its first episode
@@ -337,12 +342,14 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         smt_cfg = self.config.RL.PPO.SCENE_MEMORY_TRANSFORMER
         return smt_cfg.batched_eval_chunk if smt_cfg.batched_eval else 0
 
-    def update(self, traj: Dict, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+    def update(self, traj: Dict, perms: Optional[Sequence] = None,
+               grad_reduce=identity_grad_reduce) -> Dict[str, torch.Tensor]:
         """GAE and π_q's PPO update on an interactive trajectory, then with
         REPLAY_STORE one step of π_l's CE on its queried steps
         (ddppo_trainer.py:907-944), in place on the parameters. ``perms`` (one
         permutation of the env slots per epoch) replaces the draws from the
-        trainer's PPO generator. Returns the averaged losses as tensors, with
+        trainer's PPO generator; ``grad_reduce`` acts before every step of
+        either optimizer. Returns the averaged losses as tensors, with
         ``dialog_loss`` when π_l was updated."""
         cfg = self.ppo_cfg
         adv, ret = compute_gae(traj["rewards"], traj["values_option"], traj["bootstrap_value"],
@@ -350,24 +357,27 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         stats = ppo_update_interactive(
             self.option_policy.evaluate_step, self.optimizer_q, traj, adv, ret, cfg,
             unct_coef=self.config.RL.PPO.unct_coef, generator=self.ppo_generator, perms=perms,
-            batched_chunk=self._eval_chunk(), compute_dtype=self.compute_dtype())
+            batched_chunk=self._eval_chunk(), compute_dtype=self.compute_dtype(), grad_reduce=grad_reduce)
         if self.config.REPLAY_STORE:
-            stats["dialog_loss"] = self.update_dialog(traj, replay_only=True)["dialog_loss"]
+            stats["dialog_loss"] = self.update_dialog(traj, replay_only=True, grad_reduce=grad_reduce)["dialog_loss"]
         return stats
 
-    def update_dialog(self, traj: Dict, replay_only: bool = False) -> Dict[str, torch.Tensor]:
+    def update_dialog(self, traj: Dict, replay_only: bool = False,
+                      grad_reduce=identity_grad_reduce) -> Dict[str, torch.Tensor]:
         """One step of π_l's class-weighted CE: over every oracle step of a
         dialog-pretraining trajectory, or (``replay_only``) over the queried
-        steps of an interactive one. Returns ``{"dialog_loss": loss}``."""
+        steps of an interactive one, its gradients through ``grad_reduce``.
+        Returns ``{"dialog_loss": loss}``."""
         loss = dialog_supervised_update(self.dialog_policy.evaluate_step, self.optimizer_l, traj,
                                         replay_only=replay_only, batched_chunk=self._eval_chunk(),
-                                        compute_dtype=self.compute_dtype())
+                                        compute_dtype=self.compute_dtype(), grad_reduce=grad_reduce)
         return {"dialog_loss": loss}
 
     # ------------------------------------------------------------------
     def train(self) -> None:
         """π_l pretraining under a dialog config, else π_q's training."""
-        self.ensure_setup()
+        if not self.begin_train():
+            return
         if self.dialog_mode:
             self._train_dialog()
         else:
@@ -386,7 +396,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
         window = collections.deque(maxlen=cfg.RL.PPO.reward_window_size)
-        reward_acc = np.zeros((self.env.num_envs,), np.float64)
+        reward_acc = np.zeros((cfg.NUM_PROCESSES if self.mesh else self.env.num_envs,), np.float64)
         t_start = time.time()
         ckpt_count = 0
 
@@ -395,27 +405,32 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         resume = self.try_to_resume()
         if resume is not None:
             self.restore(resume)
+            self.broadcast_parameters()
             ckpt_count = int(resume.get("_resume_index", 0))
 
-        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
-            for update in range(cfg.NUM_UPDATES):
-                if preemption.should_exit():
-                    preemption.save_interrupted_state(self._checkpoint_payload())
-                    preemption.requeue_job()
+        def collect(_, carry):
+            return self.collect(carry)
+
+        def update(_, traj, key, grad_reduce):
+            return None, self.update(traj, grad_reduce=grad_reduce)
+
+        superstep = self.superstep(collect, update, timings)
+        with TensorboardWriter(self.tensorboard_dir()) as writer:
+            for update_i in range(cfg.NUM_UPDATES):
+                if self.preempted():
                     break
                 with timings.time("superstep_time"):
-                    with timings.time("collect_time"):
-                        _, traj = self.collect()
-                        self._sync()
-                    with timings.time("update_time"):
-                        stats = {k: float(v) for k, v in self.update(traj).items()}
+                    _, self.carry, traj, stats = superstep(None, self.carry)
+                stats = {k: float(v) for k, v in stats.items()}
                 self.carry = self._refresh_episode_stream(self.carry)
 
                 with timings.time("host_time"):
-                    rewards = traj["rewards"].cpu().numpy()
-                    dones = traj["dones"].cpu().numpy()
-                    qcount = traj["query_count"].cpu().numpy()
-                    metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
+                    logged = self.global_view({k: traj[k] for k in ("rewards", "dones", "query_count", "metrics")},
+                                              traj["rewards"].shape[0])
+                    rewards = logged["rewards"].cpu().numpy()
+                    dones = logged["dones"].cpu().numpy()
+                    qcount = logged["query_count"].cpu().numpy()
+                    metrics = {k: v.cpu().numpy() for k, v in logged["metrics"].items() if k not in METRIC_BLACKLIST}
                     for t_i in range(rewards.shape[0]):
                         reward_acc += rewards[t_i]
                         for b_i in np.nonzero(dones[t_i])[0]:
@@ -425,9 +440,9 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
                 self.num_steps_done += rewards.size
                 self.num_updates_done += 1
 
-                if update % cfg.LOG_INTERVAL == 0:
+                if update_i % cfg.LOG_INTERVAL == 0:
                     fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
-                    logger.info(f"interactive update {update} fps {fps:.1f} frames {self.num_steps_done} "
+                    logger.info(f"interactive update {update_i} fps {fps:.1f} frames {self.num_steps_done} "
                                 + timings.summary())
                     if window:
                         means = {k: float(np.mean([w[k] for w in window])) for k in window[0]}
@@ -441,9 +456,9 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
                         writer.add_scalar(f"Policy/{k}", v, self.num_steps_done)
 
                 # every CHECKPOINT_INTERVAL updates (ddppo_trainer.py:1191)
-                if (update + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update + 1 == cfg.NUM_UPDATES:
+                if (update_i + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update_i + 1 == cfg.NUM_UPDATES:
                     with timings.time("checkpoint_time"):
-                        self.save_checkpoint(f"ckpt.{ckpt_count}.pth")
+                        self.checkpoint(f"ckpt.{ckpt_count}.pth")
                     ckpt_count += 1
         self.train_seconds = time.time() - t_start
 
@@ -453,35 +468,45 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         trainer's key), ``Policy/dialog_loss`` every LOG_INTERVAL updates and
         ``CHECKPOINT_FOLDER/vln/ckpt.N.pth`` (π_l's parameters and the
         config) every CHECKPOINT_INTERVAL_DIALOG updates and at the last.
-        ``dialog_losses`` holds every update's loss."""
+        ``dialog_losses`` holds every update's loss (averaged over ranks)."""
         cfg = self.config
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
         t_start = time.time()
         ckpt_count = 0
-        gen = torch.Generator(device=self.device).manual_seed(cfg.SEED + 2)
+        gen = torch.Generator(device=self.device).manual_seed(self.rank_seed(cfg.SEED + 2))
         self.timings = timings = Timings()
         self.dialog_losses = []
-        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
-            for update in range(cfg.NUM_UPDATES_DIALOG):
+        ranks = self.mesh.axis_size("data") if self.mesh else 1
+
+        def collect(_, carry):
+            return self.collect_dialog(carry, generator=gen)
+
+        def update(_, traj, key, grad_reduce):
+            return None, self.update_dialog(traj, grad_reduce=grad_reduce)
+
+        superstep = self.superstep(collect, update, timings)
+        with TensorboardWriter(self.tensorboard_dir()) as writer:
+            for update_i in range(cfg.NUM_UPDATES_DIALOG):
                 with timings.time("superstep_time"):
-                    with timings.time("collect_time"):
-                        _, traj = self.collect_dialog(generator=gen)
-                        self._sync()
-                    with timings.time("update_time"):
-                        loss = float(self.update_dialog(traj)["dialog_loss"])
+                    _, self.carry, traj, stats = superstep(None, self.carry)
+                loss = float(stats["dialog_loss"])
                 self.dialog_losses.append(loss)
                 self.carry = self._refresh_episode_stream(self.carry)
-                self.num_steps_done += traj["o_action"].numel()
+                self.num_steps_done += traj["o_action"].numel() * ranks
                 self.num_updates_done += 1
-                if update % cfg.LOG_INTERVAL == 0:
+                if update_i % cfg.LOG_INTERVAL == 0:
                     fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
-                    logger.info(f"dialog update {update} loss {loss:.4f} fps {fps:.1f}")
+                    logger.info(f"dialog update {update_i} loss {loss:.4f} fps {fps:.1f}")
                     writer.add_scalar("Policy/dialog_loss", loss, self.num_steps_done)
-                if (update + 1) % max(cfg.CHECKPOINT_INTERVAL_DIALOG, 1) == 0 or update + 1 == cfg.NUM_UPDATES_DIALOG:
+                if (update_i + 1) % max(cfg.CHECKPOINT_INTERVAL_DIALOG, 1) == 0 \
+                        or update_i + 1 == cfg.NUM_UPDATES_DIALOG:
                     with timings.time("checkpoint_time"):
-                        save_checkpoint(os.path.join(cfg.CHECKPOINT_FOLDER, "vln"), f"ckpt.{ckpt_count}.pth",
-                                        {"state_dict": to_flax_params(self.dialog_policy), "config": cfg.to_dict()})
+                        if self.is_rank0:
+                            save_checkpoint(os.path.join(cfg.CHECKPOINT_FOLDER, "vln"), f"ckpt.{ckpt_count}.pth",
+                                            {"state_dict": to_flax_params(self.dialog_policy),
+                                             "config": cfg.to_dict()})
+                        ddppo.barrier(self.mesh)
                     ckpt_count += 1
         self.train_seconds = time.time() - t_start
 

@@ -11,8 +11,10 @@ runs a rollout in which the SMT policy acts step by step, with the belief
 predictor filling the beliefs before each act; ``update`` runs GAE, the PPO
 update with batched ring re-evaluation, and the belief predictor's online
 location regression (ppo_trainer.py:959-1032); ``train()`` loops collect +
-update with resume, logging, checkpoints and preemption; ``eval()`` runs
-the exactly-once eval of a checkpoint or a folder of them.
+update with resume, logging, checkpoints and preemption, data-parallel over
+the ranks of a process group (``parallel/ddppo.py``: both optimizers'
+gradients averaged before their steps); ``eval()`` runs the exactly-once
+eval of a checkpoint or a folder of them.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from avlen_tpu_torch.models.belief_predictor import (
 from avlen_tpu_torch.models.memory import init_memory
 from avlen_tpu_torch.models.smt_policy import AudioNavSMTNet, SMTPolicy
 from avlen_tpu_torch.rl.gae import compute_gae
-from avlen_tpu_torch.rl.ppo import make_optimizer, ppo_config_from, ppo_update
+from avlen_tpu_torch.rl.ppo import identity_grad_reduce, make_optimizer, ppo_config_from, ppo_update
 from avlen_tpu_torch.rl.rollout import RolloutBatch
 from avlen_tpu_torch.rl.rollout_smt import (
     SMTCarry,
@@ -84,6 +86,7 @@ class SaviTrainer(BaseRLTrainer):
         self.env = construct_batched_env(
             cfg, num_envs=num_envs, with_depth=True, with_rgb=True,
             extra_sensors=("category_belief", "location_belief", "category"), device=dev,
+            slots=self.env_slots(num_envs or cfg.NUM_PROCESSES),
         )
         self.memory_size = smt_cfg.memory_size
 
@@ -138,12 +141,15 @@ class SaviTrainer(BaseRLTrainer):
         if self.belief_net is not None and bp_cfg.online_training:
             # optax.adam(lr): no clipping, eps 1e-8
             self.belief_optimizer = torch.optim.Adam(self.belief_net.parameters(), lr=bp_cfg.lr)
-        self.sample_generator = torch.Generator(device=dev).manual_seed(cfg.SEED)
+        self.sample_generator = torch.Generator(device=dev).manual_seed(self.rank_seed(cfg.SEED))
         # the minibatch permutations (the JAX trainer's PRNGKey(SEED + 1))
-        self.ppo_generator = torch.Generator(device="cpu").manual_seed(cfg.SEED + 1)
+        self.ppo_generator = torch.Generator(device="cpu").manual_seed(self.rank_seed(cfg.SEED + 1))
         self.carry = self.reset()
         self._setup_done = True
         self.setup_seconds = time.perf_counter() - t0
+
+    def trained_modules(self):
+        return [self.policy, self.belief_net]
 
     def _merge_pretrained(self, module: torch.nn.Module, path: str):
         """Merge the checkpoint's ``state_dict`` into ``module`` where paths
@@ -223,27 +229,30 @@ class SaviTrainer(BaseRLTrainer):
         # the sequential ring replay, one step of Bm rows at a time
         return evaluate_sequence_smt(step, obs, initial_memory, masks, actions)
 
-    def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
+    def update(self, batch: RolloutBatch, perms: Optional[Sequence] = None,
+               grad_reduce=identity_grad_reduce) -> Dict[str, torch.Tensor]:
         """GAE, one PPO update and (with online belief training) one belief
         step on ``batch``, in place on the parameters. ``perms`` (one
         permutation of the env slots per epoch) replaces the draws from the
-        trainer's PPO generator. Returns the averaged losses as tensors, with
-        ``belief_loss`` under online belief training."""
+        trainer's PPO generator; ``grad_reduce`` (DD-PPO's gradient average)
+        acts before every optimizer step. Returns the averaged losses as
+        tensors, with ``belief_loss`` under online belief training."""
         cfg = self.ppo_cfg
         adv, ret = compute_gae(
             batch.rewards, batch.values, batch.bootstrap_value,
             1.0 - batch.dones.float(), cfg.gamma, cfg.tau,
         )
         stats = ppo_update(batch, adv, ret, self.evaluate_actions, self.optimizer, cfg,
-                           generator=self.ppo_generator, perms=perms)
+                           generator=self.ppo_generator, perms=perms, grad_reduce=grad_reduce)
         if self.belief_optimizer is not None:
-            stats["belief_loss"] = self.belief_train_step(batch)
+            stats["belief_loss"] = self.belief_train_step(batch, grad_reduce)
         return stats
 
-    def belief_train_step(self, batch: RolloutBatch) -> torch.Tensor:
+    def belief_train_step(self, batch: RolloutBatch, grad_reduce=identity_grad_reduce) -> torch.Tensor:
         """One Adam step of the location regression: the MSE to the goal
         direction over the T·B steps whose spectrogram is not silent
-        (train_belief_predictor, ppo_trainer.py:959-1032). Returns the loss."""
+        (train_belief_predictor, ppo_trainer.py:959-1032), its gradients
+        through ``grad_reduce``. Returns the loss."""
         t, b = batch.actions.shape
         spec = batch.obs["spectrogram"].reshape((t * b,) + batch.obs["spectrogram"].shape[2:])
         cat = batch.obs.get("category")
@@ -255,6 +264,7 @@ class SaviTrainer(BaseRLTrainer):
         loss = err.sum() / torch.clamp(weights.sum(), min=1.0)
         self.belief_optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        grad_reduce(list(self.belief_net.parameters()))
         self.belief_optimizer.step()
         return loss.detach()
 
@@ -278,19 +288,21 @@ class SaviTrainer(BaseRLTrainer):
         """NUM_UPDATES rounds of collect + update (ppo_trainer.py:1088-1240):
         resume first (RESUME_CHECKPOINT: the interrupted state, else the
         newest checkpoint; the loop then starts again at update 0, as in the
-        JAX trainer), the reward/metric window over finished episodes,
-        ``Policy/*`` and ``Metrics/*`` scalars every LOG_INTERVAL updates, a
-        checkpoint every CHECKPOINT_INTERVAL updates and at the last, and the
-        interrupted-state save + requeue on a preemption signal. Timings:
-        ``superstep_time`` (collect + update, of which ``collect_time`` and
-        ``update_time``, each ending in a device synchronise),
-        ``host_time`` and ``checkpoint_time``; ``train_seconds`` is the loop's
-        wall time."""
-        self.ensure_setup()
+        JAX trainer), the reward/metric window over finished episodes (every
+        rank's), ``Policy/*`` (averaged over ranks) and ``Metrics/*`` scalars
+        every LOG_INTERVAL updates, a checkpoint every CHECKPOINT_INTERVAL
+        updates and at the last, and the interrupted-state save + requeue on
+        a preemption signal. Timings: ``superstep_time`` (collect + update,
+        of which ``collect_time`` and ``update_time``, each ending in a device
+        synchronise), ``host_time`` and ``checkpoint_time``;
+        ``train_seconds`` is the loop's wall time. Under a process group of
+        more than one rank, the DD-PPO rules of ``BaseRLTrainer``."""
+        if not self.begin_train():
+            return
         cfg = self.config
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         os.makedirs(cfg.TENSORBOARD_DIR, exist_ok=True)
-        window = EpisodeWindow(self.env.num_envs, cfg.RL.PPO.reward_window_size)
+        window = EpisodeWindow(cfg.NUM_PROCESSES if self.mesh else self.env.num_envs, cfg.RL.PPO.reward_window_size)
         t_start = time.time()
         ckpt_count = 0
 
@@ -300,31 +312,34 @@ class SaviTrainer(BaseRLTrainer):
         resume = self.try_to_resume()
         if resume is not None:
             self.restore(resume)
+            self.broadcast_parameters()
             ckpt_count = int(resume.get("_resume_index", 0))
 
-        with TensorboardWriter(cfg.TENSORBOARD_DIR) as writer:
-            for update in range(cfg.NUM_UPDATES):
-                if preemption.should_exit():
+        def collect(_, carry):
+            return self.collect(carry)
+
+        def update(_, batch, key, grad_reduce):
+            return None, self.update(batch, grad_reduce=grad_reduce)
+
+        superstep = self.superstep(collect, update, timings)
+        with TensorboardWriter(self.tensorboard_dir()) as writer:
+            for update_i in range(cfg.NUM_UPDATES):
+                if self.preempted():
                     # interrupted-state save + requeue (ddp_utils.py:70-122,
                     # trainer hook ddppo_trainer.py:846-870)
-                    preemption.save_interrupted_state(self._checkpoint_payload())
-                    preemption.requeue_job()
                     break
                 with timings.time("superstep_time"):
-                    with timings.time("collect_time"):
-                        _, batch = self.collect()
-                        self._sync()
-                    with timings.time("update_time"):
-                        stats = {k: float(v) for k, v in self.update(batch).items()}
+                    _, self.carry, batch, stats = superstep(None, self.carry)
+                stats = {k: float(v) for k, v in stats.items()}
                 self.carry = self._refresh_episode_stream(self.carry)
 
                 with timings.time("host_time"):
-                    self.num_steps_done += window.add(batch)
+                    self.num_steps_done += window.add(self.window_view(batch))
                 self.num_updates_done += 1
 
-                if update % cfg.LOG_INTERVAL == 0:
+                if update_i % cfg.LOG_INTERVAL == 0:
                     fps = self.num_steps_done / max(time.time() - t_start, 1e-6)
-                    logger.info(f"savi update {update} fps {fps:.1f} frames {self.num_steps_done} "
+                    logger.info(f"savi update {update_i} fps {fps:.1f} frames {self.num_steps_done} "
                                 + timings.summary())
                     means = window.means()
                     if means:
@@ -336,9 +351,9 @@ class SaviTrainer(BaseRLTrainer):
                         writer.add_scalar(f"Policy/{k}", v, self.num_steps_done)
 
                 # every CHECKPOINT_INTERVAL updates (ddppo_trainer.py:1191)
-                if (update + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update + 1 == cfg.NUM_UPDATES:
+                if (update_i + 1) % cfg.CHECKPOINT_INTERVAL == 0 or update_i + 1 == cfg.NUM_UPDATES:
                     with timings.time("checkpoint_time"):
-                        self.save_checkpoint(f"ckpt.{ckpt_count}.pth")
+                        self.checkpoint(f"ckpt.{ckpt_count}.pth")
                     ckpt_count += 1
         self.train_seconds = time.time() - t_start
 

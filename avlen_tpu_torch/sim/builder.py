@@ -226,7 +226,13 @@ def construct_batched_env(
     seed: Optional[int] = None,
     extra_sensors: Tuple[str, ...] = (),
     device: Union[str, torch.device] = "cuda",
+    slots: Optional[Tuple[int, int]] = None,
 ) -> BatchedAudioNavEnv:
+    """The batched env of ``num_envs`` (default NUM_PROCESSES) slots over
+    the configured world. ``slots`` = (lo, hi) keeps env slots [lo, hi) of
+    that packing (a DD-PPO rank's share): the world, the episode tables and
+    each kept slot's episode stream are those of the full packing, so local
+    slot j streams what slot lo + j does."""
     tc = config.TASK_CONFIG
     b = num_envs or config.NUM_PROCESSES
     bank, tables, episodes = build_world_from_config(
@@ -272,6 +278,10 @@ def construct_batched_env(
             seed=config.SEED,
         )
         packed["order"] = streamer.initial_order()
+    if slots is not None:
+        packed["order"] = packed["order"][slots[0] : slots[1]]
+        if streamer is not None:
+            streamer.keep_slots(*slots)
 
     sensors = list(sensors_from_task(tc))
     if with_depth and "depth" not in sensors:

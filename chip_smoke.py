@@ -230,6 +230,29 @@ Phases, one JSON line each; any fault raises and the script exits non-zero:
     audio 1e-5 × peak), ``eval_speaker`` (keys; with the CPU's parameters
     the same JSON and decodes) and ``QuesGen``'s ids.
 
+24. ``ddppo`` (after ``aux_modules``): DD-PPO through torchrun
+    (``python -m torch.distributed.run --standalone``), each rank running
+    ``avlen_tpu_torch.run.main`` inside ``chip_smoke.py --ddppo-rank``,
+    which counts every kernel launch by shape, holds each (kernel, shape)
+    against its plain version on its first inputs (SMT 1e-4, irfft 1e-5 ×
+    peak, spectrogram 1e-4), digests the parameters after each update and
+    times each gradient all-reduce: savi.yaml uncut over 2 ranks sharing
+    the card on gloo (8 envs a rank, one collect + update), alone; then at
+    once AV-Nav, AV-WAN and AVLEN stage 1 at their configs' widths over 2
+    ranks (one update each) and savi.yaml (DDPPO_PAIR_STEPS steps) on 1
+    rank of NCCL beside the same with no group, with deterministic
+    algorithms. A rank's collect and update ms, global training
+    env-steps/s, all-reduce ms by buffer size; fails unless the ranks are
+    bit-equal after the update, the NCCL run equals the no-group run bit
+    for bit, every launch shape is in DDPPO_SHAPES and within its
+    tolerance.
+25. ``parity_evidence``: the recipe runner (``avlen_tpu_torch.scripts.
+    run_parity_evidence.main``, PARITY_ARGS: scale 0.01, 8 episodes a
+    cell) through every stage and the Table-1-shaped eval, every launch
+    shape held against the plain version; fails unless ``summary.json``
+    has the JAX script's keys with every cell finite and fully evaluated
+    and ``curves.npz`` every stage.
+
 ``native_build`` (after ``build``) compiles the native host libraries
 (frame server, graph engine) with g++ into ``build/native/``.
 
@@ -2282,9 +2305,9 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
         bwd.take()
         return out
 
-    def update(self, traj, perms=None):
+    def update(self, traj, perms=None, **kw):
         t0 = time.perf_counter()
-        stats = {k: v.item() for k, v in update_t.wrap(orig["update"])(self, traj, perms).items()}
+        stats = {k: v.item() for k, v in update_t.wrap(orig["update"])(self, traj, perms, **kw).items()}
         wall_ms = (time.perf_counter() - t0) * 1e3
         update_ms, dialog_ms, collect_ms = update_t.take_ms(), dialog_t.take_ms(), collect_t.take_ms()
         f, g = fwd.take(), bwd.take()
@@ -2309,8 +2332,8 @@ def run_interactive_train(smi: str, goal_ckpt: str, belief_ckpt: str, vln_ckpt: 
             train_env_steps_per_s=t_steps * b / ((collect_ms + update_ms) / 1e3), stats=stats))
         return stats
 
-    def update_dialog(self, traj, replay_only=False):
-        return dialog_t.wrap(orig["update_dialog"])(self, traj, replay_only)
+    def update_dialog(self, traj, replay_only=False, **kw):
+        return dialog_t.wrap(orig["update_dialog"])(self, traj, replay_only, **kw)
 
     with launch_shapes() as shapes:
         wrappers = _kernel_wrappers()
@@ -3745,7 +3768,7 @@ def run_vln_dialog(smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str
             states.append(state)
         return step(self, state, actions, query, consts)
 
-    def checked_update_dialog(self, traj, replay_only=False):
+    def checked_update_dialog(self, traj, replay_only=False, **kw):
         t_steps = traj["dialog"].shape[0]
         eps = torch.stack([s.ep_i for s in states[-t_steps:]])
         rows = self.sub_instr_bank[eps]
@@ -3756,7 +3779,7 @@ def run_vln_dialog(smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str
         if self.instr_bank is not None:
             spk = torch.stack([self.instr_bank[s.scene, s.node, s.rot, s.goal_node] for s in states[-t_steps:]])
             served["speaker_differs"] += int(((spk != rows).any(-1) & has).sum())
-        return update_dialog(self, traj, replay_only)
+        return update_dialog(self, traj, replay_only, **kw)
 
     pre_dir = os.path.join(root, "pretrain")
     shutil.rmtree(pre_dir, ignore_errors=True)
@@ -3834,8 +3857,8 @@ def run_vln_dialog(smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt: str
 
     stats, update = [], Trainer.update
 
-    def recorded_update(self, traj, perms=None):
-        out = update(self, traj, perms)
+    def recorded_update(self, traj, perms=None, **kw):
+        out = update(self, traj, perms, **kw)
         stats.append({k: v.item() for k, v in out.items()})
         return out
 
@@ -4272,33 +4295,9 @@ def first_kernel_inputs(skip: int = 0):
 
 
 def check_kernels_at(seen):
-    """Each captured kernel against its plain version on its inputs."""
-    import torch
-
-    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
-
-    out = {}
-    with torch.no_grad():
-        if "smt_encode" in seen:
-            entries, valid, goal, weights, nhead = seen["smt_encode"]
-            params = dict(zip(smt_cuda.KERNEL_WEIGHTS, weights))
-            got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
-            want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
-            out["smt_encode"] = dict(shape=list(entries.shape), entries_dtype=str(entries.dtype),
-                                     max_abs_err=(got - want).abs().max().item())
-        spec, fft_len, start, length = seen["partial_irfft"]
-        got = irfft_cuda.partial_irfft(spec, fft_len, start, length)
-        want = irfft_cuda.partial_irfft_plain(spec, fft_len, start, length)
-        out["partial_irfft"] = dict(shape=list(spec.shape), fft_len=fft_len,
-                                    max_abs_err=(got - want).abs().max().item(), peak=want.abs().max().item())
-        audio, config = seen["spectrogram"]
-        got = spectrogram_cuda.spectrogram(audio, config)
-        want = spectrogram_cuda.spectrogram_plain(audio, config)
-        out["spectrogram"] = dict(shape=list(audio.shape), max_abs_err=(got - want).abs().max().item())
-    for name, r in out.items():
-        r["tol"] = PRECISION_KERNEL_TOL[name] * (r["peak"] if name == "partial_irfft" else 1.0)
-        r["ok"] = r["max_abs_err"] <= r["tol"]
-    return out
+    """Each captured kernel against its plain version on its inputs
+    (``check_kernel_input``)."""
+    return {name: check_kernel_input(name, args) for name, args in seen.items()}
 
 
 def profile_collect(trainer, steps: int = PRECISION_PROFILE_STEPS, sessions: int = 3):
@@ -4562,6 +4561,456 @@ def run_precision(dev, smi: str, goal_ckpt: str, belief_ckpt: str, speaker_ckpt:
     return {k: r["launches"] for k, r in runs.items()}
 
 
+DDPPO_DIR = "build/chip_smoke_ddppo"  # the rank files and model dirs of the ddppo phase
+DDPPO_TIMEOUT = 420  # seconds a launch may take
+DDPPO_PAIR_STEPS = 30  # the NCCL / no-group SAVi pair's rollout (savi.yaml's 150, cut)
+# every per-rank launch shape the ddppo phase may give a kernel (as
+# launch_shapes keys them); each is held against the plain version in the
+# rank that launched it, on its first inputs
+DDPPO_SHAPES = {
+    # savi.yaml over 2 ranks: 8 envs a rank, memory 150 (151 entries of 288),
+    # the update's rows 15 steps x 8 // 2 minibatches; its 1-rank pair at 16
+    # envs and 120 rows; AVLEN stage 1 over 2 ranks: 3 envs a rank, π_g's,
+    # π_q's and π_l's entries, π_q's update rows 15 x 3 // 2
+    "smt_encode": {(8, 151, 288), (60, 151, 288), (16, 151, 288), (120, 151, 288),
+                   (3, 151, 288), (3, 151, 320), (3, 4, 288), (15, 151, 320)},
+    # 16 kHz rows of 65,536 points; AV-Nav's and AV-WAN's 44.1 kHz bank renders
+    "partial_irfft": {(8, 2, 65536), (16, 2, 65536), (3, 2, 65536), (256, 2, 65536), (32, 2, 65536)},
+    "spectrogram": {(8, 2, 16000), (16, 2, 16000), (3, 2, 16000), (256, 2, 44100), (32, 2, 44100)},
+}
+PARITY_DIR = "build/chip_smoke_parity"  # the recipe runner's workdir
+PARITY_ARGS = ("--scale", "0.01", "--eval-count", "8", "--seed", "7")
+
+
+@contextlib.contextmanager
+def launch_inputs_by_shape():
+    """Within the block, every kernel launch's shape counted (as
+    ``launch_shapes`` keys them) and clones of the inputs of the first
+    launch of each (kernel, shape): yields (shapes, {(kernel, shape):
+    args})."""
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    shapes = {k: collections.Counter() for k in ("smt_encode", "partial_irfft", "spectrogram")}
+    inputs = {}
+    irfft_launch, spec_launch = irfft_cuda._launch, spectrogram_cuda._launch
+
+    def keep(name, shape, args):
+        shapes[name][shape] += 1
+        if (name, shape) not in inputs:
+            inputs[(name, shape)] = tuple(
+                a.detach().clone() if hasattr(a, "clone") else
+                [w.detach().clone() for w in a] if isinstance(a, (list, tuple)) else a for a in args)
+
+    def irfft(spec, fft_len, out_start, out_len):
+        keep("partial_irfft", tuple(spec.shape[:-1]) + (fft_len,), (spec, fft_len, out_start, out_len))
+        return irfft_launch(spec, fft_len, out_start, out_len)
+
+    def spectro(audio, config):
+        keep("spectrogram", tuple(audio.shape), (audio, config))
+        return spec_launch(audio, config)
+
+    def smt(launch):
+        def run(entries, *args):
+            keep("smt_encode", tuple(entries.shape), (entries, *args))
+            return launch(entries, *args)
+
+        return run
+
+    irfft_cuda._launch, spectrogram_cuda._launch = irfft, spectro
+    try:
+        with smt_cuda.wrapped_passes(smt, lambda backward: backward):
+            yield shapes, inputs
+    finally:
+        irfft_cuda._launch, spectrogram_cuda._launch = irfft_launch, spec_launch
+
+
+def check_kernel_input(name: str, args) -> dict:
+    """One kernel against its plain version on ``args`` (its launch's
+    inputs), within PRECISION_KERNEL_TOL (the irfft's × the output's peak)."""
+    import torch
+
+    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+
+    with torch.no_grad():
+        if name == "smt_encode":
+            entries, valid, goal, weights, nhead = args
+            params = dict(zip(smt_cuda.KERNEL_WEIGHTS, weights))
+            got = smt_cuda.smt_encode(params, entries, valid, goal, nhead)
+            want = smt_cuda.smt_encode_plain(params, entries, valid, goal, nhead)
+            r = dict(shape=list(entries.shape), entries_dtype=str(entries.dtype))
+        elif name == "partial_irfft":
+            spec, fft_len, start, length = args
+            got = irfft_cuda.partial_irfft(spec, fft_len, start, length)
+            want = irfft_cuda.partial_irfft_plain(spec, fft_len, start, length)
+            r = dict(shape=list(spec.shape), fft_len=fft_len, peak=want.abs().max().item())
+        else:
+            audio, config = args
+            got = spectrogram_cuda.spectrogram(audio, config)
+            want = spectrogram_cuda.spectrogram_plain(audio, config)
+            r = dict(shape=list(audio.shape))
+    r["max_abs_err"] = (got - want).abs().max().item()
+    r["tol"] = PRECISION_KERNEL_TOL[name] * (r["peak"] if name == "partial_irfft" else 1.0)
+    r["ok"] = r["max_abs_err"] <= r["tol"]
+    return r
+
+
+def check_launch_inputs(inputs) -> dict:
+    """``check_kernel_input`` of every captured (kernel, shape), keyed
+    "kernel:BxLxF"."""
+    return {f"{name}:{'x'.join(map(str, shape))}": check_kernel_input(name, args)
+            for (name, shape), args in inputs.items()}
+
+
+def param_digest(trainer) -> str:
+    """sha256 of every parameter of the trainer's trained modules, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in trainer.trained_modules():
+        if m is not None:
+            for p in m.parameters():
+                h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_collectives(trainer):
+    """Every collective of ``parallel/ddppo.py`` once over the whole process
+    group, on tensors on the trainer's device, each held to what it must
+    give: ``all_reduce_mean_grads`` of gradients equal on every rank (the
+    parameters, which the run kept bit-equal) gives them back bit for bit,
+    ``broadcast_modules`` leaves the equal parameters as they are,
+    ``gather_pytree`` concatenates the ranks' time-major (T, B/n, 3) blocks
+    and env-leading (B/n,) vectors in rank order, ``any_rank`` is true on
+    every rank when the last says so and false when none does, and
+    ``barrier`` returns. Returns the backend, the world size and
+    {collective: ok}."""
+    import torch
+    import torch.distributed as dist
+
+    from avlen_tpu_torch.parallel import ddppo
+    from avlen_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    n, rank, dev = mesh.world_size, mesh.rank, trainer.device
+    ok = {}
+    params = [p for m in trainer.trained_modules() if m is not None for p in m.parameters()]
+    before, grads = param_digest(trainer), [p.grad for p in params]
+    for p in params:
+        p.grad = p.detach().clone()
+    ddppo.all_reduce_mean_grads(params, mesh)
+    ok["all_reduce_mean_grads"] = all(p.grad.device == p.device and torch.equal(p.grad, p.detach()) for p in params)
+    for p, g in zip(params, grads):
+        p.grad = g
+    ddppo.broadcast_modules(trainer.trained_modules(), mesh)
+    ok["broadcast_modules"] = param_digest(trainer) == before
+    t, b = trainer.num_steps, trainer.env.num_envs
+
+    def block(r):
+        return {"x": torch.arange(t * b * 3, dtype=torch.float32, device=dev).reshape(t, b, 3) + 1e4 * r,
+                "m": torch.full((b,), float(r), device=dev)}
+
+    tree = block(rank)
+    got = ddppo.gather_pytree(tree, ddppo.infer_env_specs(tree, b, t), mesh)
+    blocks = [block(r) for r in range(n)]
+    want = {"x": torch.cat([x["x"] for x in blocks], 1), "m": torch.cat([x["m"] for x in blocks])}
+    ok["gather_pytree"] = all(got[k].device == want[k].device and torch.equal(got[k], want[k]) for k in want)
+    ok["any_rank"] = ddppo.any_rank(rank == n - 1, mesh, dev) and not ddppo.any_rank(False, mesh, dev)
+    ddppo.barrier(mesh)
+    ok["barrier"] = True
+    return dict(backend=dist.get_backend(), world_size=n, device=str(dev), ok=ok)
+
+
+def ddppo_rank_main(argv) -> int:
+    """The rank program of the ``ddppo`` phase: ``chip_smoke.py
+    --ddppo-rank OUT_DIR [--deterministic] -- RUN_ARGV`` runs
+    ``avlen_tpu_torch.run.main(RUN_ARGV)`` (under torchrun each rank joins
+    the group first, so that it outlives the run) with every kernel launch
+    counted by shape, the first inputs of each (kernel, shape) held against
+    the plain version after the run, the trained parameters' digest after
+    each update, the host ms of each gradient all-reduce (synchronised on
+    both sides), and, under the launcher, ``check_collectives`` over the
+    group after the run; writes ``OUT_DIR/rank{RANK}.json``.
+    ``--deterministic``: cuDNN's and torch's deterministic algorithms, for
+    runs compared bit for bit."""
+    sep = argv.index("--")
+    out_dir, flags, run_argv = argv[0], argv[1:sep], argv[sep + 1:]
+    if "--deterministic" in flags:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from avlen_tpu_torch import run
+    from avlen_tpu_torch.parallel import ddppo
+    from avlen_tpu_torch.parallel.mesh import backend_for, joined_process_group
+    from avlen_tpu_torch.rl.trainers.base import BaseRLTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if "--deterministic" in flags:
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    rank = int(os.environ.get("RANK", "0"))
+    digests, reduces = [], []
+    refresh, reduce = BaseRLTrainer._refresh_episode_stream, ddppo.all_reduce_mean_grads
+
+    def after_update(self, carry):
+        digests.append(param_digest(self))
+        return refresh(self, carry)
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def timed_reduce(params, mesh):
+        sync()
+        t0 = time.perf_counter()
+        reduce(params, mesh)
+        sync()
+        reduces.append((sum(p.grad.numel() for p in params if p.grad is not None),
+                        (time.perf_counter() - t0) * 1e3))
+
+    BaseRLTrainer._refresh_episode_stream = after_update
+    ddppo.all_reduce_mean_grads = timed_reduce
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    under_launcher = "WORLD_SIZE" in os.environ
+    device_type = run_argv[run_argv.index("--device") + 1] if "--device" in run_argv else "cuda"
+    with joined_process_group(device_type) if under_launcher else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        with launch_inputs_by_shape() as (shapes, inputs):
+            tr = run.main(run_argv)
+        seconds = time.perf_counter() - t0
+        ddppo.all_reduce_mean_grads = reduce
+        collectives = check_collectives(tr) if under_launcher and not tr.sits_out else None
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    totals = dict(tr.timings.totals)
+    record = dict(
+        rank=rank, world_size=int(os.environ.get("WORLD_SIZE", "1")),
+        backend=backend_for("cuda") if under_launcher else None, device=str(tr.device),
+        mesh=tr.mesh is not None, sits_out=tr.sits_out, local_envs=tr.env.num_envs, num_steps=tr.num_steps,
+        updates=tr.num_updates_done, num_steps_done=tr.num_steps_done, seconds=seconds,
+        setup_s=tr.setup_seconds, train_s=tr.train_seconds,
+        collect_ms=totals["collect_time"] * 1e3 / max(tr.num_updates_done, 1),
+        update_ms=totals["update_time"] * 1e3 / max(tr.num_updates_done, 1),
+        digests=digests, all_reduces=reduces, collectives=collectives, launches=launches,
+        shapes=_shape_counts(shapes),
+        kernel_checks=check_launch_inputs(inputs),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available() else None)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def _start_ranks(name: str, config: str, opts, nproc: int, launcher: bool = True, deterministic: bool = False):
+    """One update of ``config`` + ``opts`` through ``run.main`` under
+    ``ddppo_rank_main`` on ``nproc`` ranks through torchrun (or one process
+    with no launcher), in the background; returns (Popen, out_dir)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, DDPPO_DIR, name)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    argv = ["--run-type", "train", "--device", "cuda", "--exp-config", config,
+            "--model-dir", os.path.join(out_dir, "model"), "NUM_UPDATES", "1", *opts]
+    prog = [os.path.join(repo, "chip_smoke.py"), "--ddppo-rank", out_dir,
+            *(["--deterministic"] if deterministic else []), "--", *argv]
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc), *prog]
+           if launcher else [sys.executable, *prog])
+    with open(os.path.join(out_dir, "log.txt"), "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=repo)
+    return proc, out_dir
+
+
+def _finish_ranks(started, timeout: float = DDPPO_TIMEOUT):
+    """Wait for every started launch (killing all on a timeout or a
+    failure) and read their rank files: {name: [rank records]}."""
+    out, deadline = {}, time.perf_counter() + timeout
+    try:
+        for name, (proc, out_dir, nproc) in started.items():
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+            if rc != 0:
+                with open(os.path.join(out_dir, "log.txt")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"ddppo: {name} exited {rc}:\n{tail}")
+            out[name] = []
+            for r in range(nproc):
+                with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                    out[name].append(json.load(f))
+    finally:
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def run_ddppo(smi: str, ckpts=None):
+    """DD-PPO on the card through torchrun (``ddppo_rank_main`` around
+    ``avlen_tpu_torch.run.main`` on each rank): savi.yaml uncut over 2 ranks
+    (8 envs each, gloo over CUDA tensors on the one card) for one collect +
+    update, alone; then at once: AV-Nav, AV-WAN and AVLEN stage 1 at full
+    width over 2 ranks for one update each, and savi.yaml
+    (DDPPO_PAIR_STEPS steps) on 1 rank of NCCL through the launcher beside
+    the same with no process group, both with deterministic algorithms.
+    ``ckpts`` (goal, belief, vln, speaker) feed AVLEN as in
+    ``run_interactive_train``; without them it starts fresh on the template
+    speaker. Fails unless every launch exits 0, each 2-rank run's ranks
+    hold bit-equal parameters after each update (and they moved), the pair
+    is bit-equal, every collective of ``parallel/ddppo.py`` gives what it
+    must over each launched group (``check_collectives``: on the NCCL run,
+    over NCCL on the card, since a 1-rank run trains without a mesh and
+    so without a collective), every launch shape is in DDPPO_SHAPES and within its
+    tolerance of the plain version on its first inputs, and each run
+    launched the kernels its path runs. Returns the launches over every
+    rank of every run."""
+    shutil.rmtree(DDPPO_DIR, ignore_errors=True)
+    if ckpts:
+        avlen = ["SPEAKER.CKPT_PATH", ckpts["speaker"], "GOAL_CKPT_PATH", ckpts["goal"],
+                 "VLN_CKPT_PATH", ckpts["vln"], "RL.PPO.BELIEF_PREDICTOR.pretrained_path", ckpts["belief"],
+                 "SPEAKER.BANK_MODE", "bank"]
+    else:
+        avlen = ["SPEAKER.BACKEND", "template", "GOAL_CKPT_PATH", "", "VLN_CKPT_PATH", "",
+                 "RL.PPO.BELIEF_PREDICTOR.pretrained_path", ""]
+    pair = ["RL.PPO.num_steps", str(DDPPO_PAIR_STEPS)]
+    runs = {"savi_2rank": (dict(config=SAVI_YAML, opts=[], nproc=2),),
+            "concurrent": (dict(name="avnav_2rank", config=AVNAV_YAML, opts=[], nproc=2),
+                           dict(name="avwan_2rank", config=AVWAN_YAML, opts=[], nproc=2),
+                           dict(name="avlen_2rank", config=INTERACTIVE_STAGE1, opts=avlen, nproc=2),
+                           dict(name="savi_nccl_1rank", config=SAVI_YAML, opts=pair, nproc=1, deterministic=True),
+                           dict(name="savi_no_group", config=SAVI_YAML, opts=pair, nproc=1, launcher=False,
+                                deterministic=True))}
+    results, walls = {}, {}
+    for group, specs in runs.items():
+        started = {}
+        t0 = time.perf_counter()
+        for spec in specs:
+            name = spec.get("name", group)
+            proc, out_dir = _start_ranks(name, spec["config"], spec["opts"], spec["nproc"],
+                                         spec.get("launcher", True), spec.get("deterministic", False))
+            started[name] = (proc, out_dir, spec["nproc"])
+        results.update(_finish_ranks(started))
+        walls[group] = time.perf_counter() - t0
+
+    fields, bad, launches = dict(nvidia_smi=smi, wall_s=walls), [], {k: 0 for k in DDPPO_SHAPES}
+    for name, ranks in results.items():
+        r0 = ranks[0]
+        for r in ranks:
+            for k, n in r["launches"].items():
+                launches[k] += n
+            for k, shapes in r["shapes"].items():
+                unlisted = [s for s in shapes if tuple(map(int, s.split("x"))) not in DDPPO_SHAPES[k]]
+                if unlisted:
+                    bad.append(f"{name} rank {r['rank']}: {k} launched at unlisted shapes {unlisted}")
+            for key, c in r["kernel_checks"].items():
+                if not c["ok"]:
+                    bad.append(f"{name} rank {r['rank']}: {key} off its plain version {c}")
+            coll = r["collectives"]
+            if r["backend"] is not None and not (coll and all(coll["ok"].values())
+                                                 and coll["backend"] == r["backend"]
+                                                 and coll["world_size"] == len(ranks)):
+                bad.append(f"{name} rank {r['rank']}: collectives wrong: {coll}")
+        f = dict(ranks=len(ranks), backend=r0["backend"], mesh=r0["mesh"], local_envs=r0["local_envs"],
+                 num_steps=r0["num_steps"], updates=r0["updates"], num_steps_done=r0["num_steps_done"],
+                 setup_s=[r["setup_s"] for r in ranks], collect_ms=[r["collect_ms"] for r in ranks],
+                 update_ms=[r["update_ms"] for r in ranks], seconds=[r["seconds"] for r in ranks],
+                 peak_mem_gb=[r["peak_mem_gb"] for r in ranks], launches=[r["launches"] for r in ranks],
+                 shapes=[r["shapes"] for r in ranks],
+                 kernel_checks={k: max(r["kernel_checks"].get(k, {"max_abs_err": 0.0})["max_abs_err"]
+                                       for r in ranks) for k in r0["kernel_checks"]},
+                 collectives=r0["collectives"])
+        slowest_s = max((r["collect_ms"] + r["update_ms"]) / 1e3 for r in ranks)
+        f["train_env_steps_per_s"] = r0["num_steps"] * r0["local_envs"] * len(ranks) / slowest_s
+        if len(ranks) > 1:
+            # by the flat buffer's size: the policy's (once a minibatch) and
+            # the belief predictor's or π_l's (once an update); the first of
+            # a process includes the gloo pair's set-up
+            by_numel = collections.defaultdict(list)
+            for r in ranks:
+                for n, ms in r["all_reduces"]:
+                    by_numel[n].append(ms)
+            f["all_reduce"] = {str(n): dict(calls_per_rank=len(v) // len(ranks), mb=n * 4 / 1e6,
+                                            ms_median=sorted(v)[len(v) // 2], ms_min=min(v), ms_max=max(v))
+                               for n, v in sorted(by_numel.items())}
+            f["digests_equal"] = all(r["digests"] == r0["digests"] for r in ranks)
+            if not (r0["mesh"] and r0["backend"] == "gloo" and r0["updates"] == 1 and len(r0["digests"]) == 1
+                    and f["digests_equal"] and r0["all_reduces"]):
+                bad.append(f"{name}: ranks not data-parallel or not bit-equal: {f}")
+        fields[name] = f
+    nccl, plain = results["savi_nccl_1rank"][0], results["savi_no_group"][0]
+    fields["pair_bit_equal"] = nccl["digests"] == plain["digests"] and len(nccl["digests"]) == 1
+    if not (fields["pair_bit_equal"] and nccl["backend"] == "nccl" and plain["backend"] is None
+            and not nccl["mesh"] and not nccl["all_reduces"]):
+        bad.append(f"ddppo: the single-rank NCCL run differs from the no-group run: {nccl['digests']} "
+                   f"vs {plain['digests']} (backend {nccl['backend']})")
+    if not (nccl["collectives"] and nccl["collectives"]["backend"] == "nccl"
+            and nccl["collectives"]["device"].startswith("cuda")):
+        bad.append(f"ddppo: the NCCL collectives did not run on the card: {nccl['collectives']}")
+    need = {"savi_2rank": DDPPO_SHAPES, "avlen_2rank": DDPPO_SHAPES,
+            "avnav_2rank": ("partial_irfft", "spectrogram"), "avwan_2rank": ("partial_irfft", "spectrogram")}
+    for name, kernels in need.items():
+        short = [k for k in kernels for r in results[name] if r["launches"][k] < 1]
+        if short:
+            bad.append(f"{name}: kernels not launched on some rank: {short}")
+    fields["launches"] = launches
+    emit("ddppo", **fields)
+    if bad:
+        raise AssertionError("ddppo: " + "; ".join(bad))
+    shutil.rmtree(DDPPO_DIR, ignore_errors=True)
+    return launches
+
+
+def run_parity_evidence(smi: str, root: str = PARITY_DIR):
+    """The recipe runner on the card (``avlen_tpu_torch.scripts.
+    run_parity_evidence.main`` in this process, PARITY_ARGS): every stage
+    of the recipe at the JAX script's world and widths, its update counts
+    and offline steps scaled by PARITY_ARGS' scale, then the table of
+    query strategies x heard/unheard and the goal-only row at its eval
+    count. Every kernel launch is counted by shape and each (kernel, shape)
+    held against its plain version on its first inputs. Fails unless the
+    summary has the JAX script's keys with every table cell finite and
+    every cell's episodes evaluated, ``curves.npz`` holds every stage's
+    curves, and every kernel ran. Returns the launches."""
+    import numpy as np
+
+    from avlen_tpu_torch.scripts import run_parity_evidence as rpe
+
+    root = os.path.abspath(root)
+    shutil.rmtree(root, ignore_errors=True)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with launch_inputs_by_shape() as (shapes, inputs):
+        summary = rpe.main(["--workdir", root, "--device", "cuda", *PARITY_ARGS])
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    checks = check_launch_inputs(inputs)
+    curves = np.load(os.path.join(root, "curves.npz"))
+    stages = sorted({k.split("__")[0] for k in curves.files})
+    eval_count = int(PARITY_ARGS[PARITY_ARGS.index("--eval-count") + 1])
+    table = summary["eval_table"]
+    finite = all(isinstance(v, (int, float)) and math.isfinite(v) for row in table.values() for v in row.values())
+    ckpt_bytes = sum(os.path.getsize(os.path.join(b, f)) for b, _, fs in os.walk(root) for f in fs
+                     if f.endswith(".pth"))
+    emit("parity_evidence", nvidia_smi=smi, args=list(PARITY_ARGS), seconds=seconds, summary=summary,
+         curve_stages=stages, launches=launches, shapes=_shape_counts(shapes),
+         kernel_checks={k: c["max_abs_err"] for k, c in checks.items()}, checkpoint_bytes=ckpt_bytes)
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if set(summary) != {"seed", "scale", "recipe", "ckpt_selection", "savi_finetune", "interactive",
+                        "eval_table"} or len(table) != 10 or not finite:
+        bad.append(f"summary keys or cells: {sorted(summary)}, {table}")
+    if any(row["episodes"] != eval_count for row in table.values()):
+        bad.append("a cell evaluated fewer episodes than asked")
+    if stages != ["dialog_pretrain", "interactive", "savi_finetune", "savi_pretrain"]:
+        bad.append(f"curves of {stages}")
+    if min(launches.values()) < 1:
+        bad.append(f"kernels not launched: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    if bad:
+        raise AssertionError("parity_evidence: " + "; ".join(map(str, bad)))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4625,6 +5074,10 @@ def main() -> int:
     tree_goal_ckpt = list_checkpoints(os.path.join(REFERENCE_DIR, "savi", "data"))[-1]
     reference_launches["vln_dialog"] = run_vln_dialog(smi, tree_goal_ckpt, belief_ckpt, speaker_ckpt)
     aux_launches = run_aux_modules(dev, smi)
+    torch.cuda.empty_cache()
+    ddppo_launches = run_ddppo(smi, dict(goal=goal_ckpt, belief=belief_ckpt, vln=vln_ckpt, speaker=speaker_ckpt))
+    parity_launches = run_parity_evidence(smi)
+    torch.cuda.empty_cache()
     # the kernel checks come after the rollout, so that their torch.profiler
     # session (check_irfft) cannot touch the host-bound rollout's launches
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4661,6 +5114,7 @@ def main() -> int:
          **{f"launches_{phase}": counts[name] for phase, counts in reference_launches.items()},
          "launches_precision": {run: counts[name] for run, counts in precision_launches.items()},
          "launches_aux_modules": {part: counts[name] for part, counts in aux_launches.items()},
+         "launches_ddppo": ddppo_launches[name], "launches_parity_evidence": parity_launches[name],
          **results[name],
          "status": "ok"}
         for name in meta
@@ -4673,4 +5127,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddppo-rank"]:
+        sys.exit(ddppo_rank_main(sys.argv[2:]))
     sys.exit(main())
