@@ -29,6 +29,7 @@ from avlen_tpu_torch.models.policy import (
 )
 from avlen_tpu_torch.models.smt import SMTStateEncoder
 from avlen_tpu_torch.models.smt_cnn import SMTCNN
+from avlen_tpu_torch.utils.profiling import span
 
 
 class AudioNavSMTNet(nn.Module):
@@ -131,11 +132,15 @@ class SMTPolicy(nn.Module):
 
     def act(self, obs, prev_actions, memory_feats, memory_valid,
             generator: Optional[torch.Generator] = None, deterministic: bool = False):
-        att, x = self.net(obs, prev_actions, memory_feats, memory_valid)
-        logits = self.action_head(att)
-        value = self.critic(att)
-        action = logits.argmax(-1) if deterministic else categorical_sample(generator, logits)
-        return action, categorical_log_prob(logits, action), value, x, logits
+        with span("act.towers"):
+            x = self.net.get_features(obs, prev_actions)
+        with span("act.smt"):
+            att = self.net.forward_with_features(obs, x, memory_feats, memory_valid)
+        with span("act.heads"):
+            logits = self.action_head(att)
+            value = self.critic(att)
+            action = logits.argmax(-1) if deterministic else categorical_sample(generator, logits)
+            return action, categorical_log_prob(logits, action), value, x, logits
 
     def evaluate_step(self, obs, prev_actions, memory_feats, memory_valid, actions):
         """One step of PPO re-evaluation, the towers recomputed."""

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from avlen_tpu_torch.parallel.mesh import Mesh
 from avlen_tpu_torch.rl.ppo import identity_grad_reduce
+from avlen_tpu_torch.utils import profiling
 
 # rank r seeds each generator at its single-process seed + RANK_SEED_STRIDE·r
 RANK_SEED_STRIDE = 100_003
@@ -227,11 +228,12 @@ def make_superstep(collect: Callable, update: Callable, mesh: Optional[Mesh], ti
     Returns ``step_fn(train_state, carry, key=None) -> (train_state, carry,
     batch, stats)`` with ``batch`` rank-local. ``timer(name)``, when given,
     is a context around the collect (``"collect_time"``) and the update
-    (``"update_time"``)."""
+    (``"update_time"``). Each call begins a round of the span recorder."""
     timer = timer or _untimed
     grad_reduce = make_grad_reduce(mesh)
 
     def step_fn(train_state, carry, key=None):
+        profiling.next_round()
         with timer("collect_time"):
             carry, batch = collect(train_state, carry)
         with timer("update_time"):

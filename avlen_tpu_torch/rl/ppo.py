@@ -25,6 +25,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 from avlen_tpu_torch.rl.rollout import RolloutBatch
+from avlen_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +191,10 @@ def ppo_update(
     num_mini_batch, B)`` minibatches of ``B // that`` slots. Each
     minibatch's gradients go through ``grad_reduce`` (the optimizer's
     parameters) before the clip and the Adam step, as in JAX. Returns the
-    losses averaged over the ``ppo_epoch × num_mb`` steps, as tensors."""
+    losses averaged over the ``ppo_epoch × num_mb`` steps, as tensors.
+    Spans each minibatch: ``update.minibatch`` (re-evaluation and loss),
+    ``update.backward`` and ``update.optimizer_step`` (the gradient
+    reduction, the clip and the Adam step)."""
     t, b = batch.actions.shape
     num_mb = min(config.num_mini_batch, b)
     mb_size = b // num_mb
@@ -211,21 +215,24 @@ def ppo_update(
                 return x.index_select(1, idx)
 
             optimizer.zero_grad()
-            loss, aux = ppo_loss(
-                evaluate_actions,
-                {k: sel(v) for k, v in batch.obs.items()},
-                sel(batch.actions),
-                sel(batch.log_probs),
-                _select0(batch.initial_hidden, idx),
-                sel(batch.masks),
-                sel(returns),
-                sel(adv),
-                sel(batch.values),
-                config,
-            )
-            loss.backward()
-            grad_reduce(optimizer_params(optimizer))
-            optimizer.step()
+            with span("update.minibatch"):
+                loss, aux = ppo_loss(
+                    evaluate_actions,
+                    {k: sel(v) for k, v in batch.obs.items()},
+                    sel(batch.actions),
+                    sel(batch.log_probs),
+                    _select0(batch.initial_hidden, idx),
+                    sel(batch.masks),
+                    sel(returns),
+                    sel(adv),
+                    sel(batch.values),
+                    config,
+                )
+            with span("update.backward"):
+                loss.backward()
+            with span("update.optimizer_step"):
+                grad_reduce(optimizer_params(optimizer))
+                optimizer.step()
             for k in sums:
                 sums[k] += aux[k].detach()
     n = config.ppo_epoch * num_mb

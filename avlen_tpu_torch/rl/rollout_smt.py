@@ -32,6 +32,7 @@ import torch
 from avlen_tpu_torch.models.belief_predictor import BeliefState
 from avlen_tpu_torch.models.memory import SMTMemory, insert, reset_where
 from avlen_tpu_torch.rl.rollout import RolloutBatch, stack_steps
+from avlen_tpu_torch.utils.profiling import span
 
 
 class SMTCarry(NamedTuple):
@@ -53,54 +54,65 @@ def collect_rollout_smt(
     num_steps: int,
 ):
     """Returns (carry, RolloutBatch); the SMT extras ride in the stored obs
-    under reserved keys: __prev_action, __feature."""
-    initial_memory = carry.memory
-    c = carry
-    steps = []
-    for _ in range(num_steps):
-        new_ep = c.masks == 0
-        memory = reset_where(c.memory, new_ep)
-        prev_action = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
-        obs = dict(c.obs)
-        belief_state = c.belief
-        if belief_fn is not None:
-            belief_state, cat_belief, loc_belief = belief_fn(belief_state, obs, new_ep)
-            obs["category_belief"] = cat_belief
-            obs["location_belief"] = loc_belief
+    under reserved keys: __prev_action, __feature. Spans: ``collect`` (with
+    the thread's CPU time), ``collect.step`` each acting step, and in it
+    ``collect.belief``, ``collect.act`` and ``collect.env_step``; then
+    ``collect.bootstrap`` and ``collect.stack``. The loop's own bookkeeping
+    is the self time of ``collect`` and ``collect.step``."""
+    with span("collect", cpu=True):
+        initial_memory = carry.memory
+        c = carry
+        steps = []
+        for t in range(num_steps):
+            with span("collect.step", step=t):
+                new_ep = c.masks == 0
+                memory = reset_where(c.memory, new_ep)
+                prev_action = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
+                obs = dict(c.obs)
+                belief_state = c.belief
+                if belief_fn is not None:
+                    with span("collect.belief"):
+                        belief_state, cat_belief, loc_belief = belief_fn(belief_state, obs, new_ep)
+                    obs["category_belief"] = cat_belief
+                    obs["location_belief"] = loc_belief
 
-        action, logp, value, x, _ = act_fn(obs, prev_action, memory.features, memory.valid)
-        memory = insert(memory, x)
-        env_state, out = env_step(c.env_state, action)
-        masks_next = 1.0 - out.done.float()
-        steps.append(dict(
-            obs={**obs, "__prev_action": prev_action, "__feature": x},
-            actions=action,
-            log_probs=logp,
-            values=value,
-            rewards=out.reward,
-            masks=c.masks,
-            dones=out.done,
-            metrics=out.metrics,
-        ))
-        c = SMTCarry(env_state, out.obs, action, masks_next, memory, belief_state)
+                with span("collect.act"):
+                    action, logp, value, x, _ = act_fn(obs, prev_action, memory.features, memory.valid)
+                memory = insert(memory, x)
+                with span("collect.env_step"):
+                    env_state, out = env_step(c.env_state, action)
+                masks_next = 1.0 - out.done.float()
+                steps.append(dict(
+                    obs={**obs, "__prev_action": prev_action, "__feature": x},
+                    actions=action,
+                    log_probs=logp,
+                    values=value,
+                    rewards=out.reward,
+                    masks=c.masks,
+                    dones=out.done,
+                    metrics=out.metrics,
+                ))
+                c = SMTCarry(env_state, out.obs, action, masks_next, memory, belief_state)
 
-    # bootstrap value from the post-rollout state
-    new_ep = c.masks == 0
-    memory_b = reset_where(c.memory, new_ep)
-    prev_a_b = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
-    obs_b = dict(c.obs)
-    if belief_fn is not None:
-        _, cat_b, loc_b = belief_fn(c.belief, obs_b, new_ep)
-        obs_b["category_belief"] = cat_b
-        obs_b["location_belief"] = loc_b
-    bootstrap = value_fn(obs_b, prev_a_b, memory_b.features, memory_b.valid)
+        # bootstrap value from the post-rollout state
+        with span("collect.bootstrap"):
+            new_ep = c.masks == 0
+            memory_b = reset_where(c.memory, new_ep)
+            prev_a_b = torch.where(new_ep, torch.zeros_like(c.prev_action), c.prev_action)
+            obs_b = dict(c.obs)
+            if belief_fn is not None:
+                _, cat_b, loc_b = belief_fn(c.belief, obs_b, new_ep)
+                obs_b["category_belief"] = cat_b
+                obs_b["location_belief"] = loc_b
+            bootstrap = value_fn(obs_b, prev_a_b, memory_b.features, memory_b.valid)
 
-    batch = RolloutBatch(
-        **stack_steps(steps),
-        initial_hidden=initial_memory,
-        bootstrap_value=bootstrap,
-    )
-    return c, batch
+        with span("collect.stack"):
+            batch = RolloutBatch(
+                **stack_steps(steps),
+                initial_hidden=initial_memory,
+                bootstrap_value=bootstrap,
+            )
+        return c, batch
 
 
 def reconstruct_memory_views(

@@ -28,6 +28,7 @@ from avlen_tpu_torch.models.layers import precision_dtype
 from avlen_tpu_torch.parallel import ddppo
 from avlen_tpu_torch.parallel.mesh import Mesh, make_mesh, world
 from avlen_tpu_torch.rl.rollout import RolloutBatch
+from avlen_tpu_torch.utils import profiling
 from avlen_tpu_torch.utils.checkpoint import list_checkpoints, load_checkpoint
 from avlen_tpu_torch.utils.logging import logger
 from avlen_tpu_torch.utils.maps import _to_px, draw_top_down_map, reveal_fog_of_war
@@ -228,15 +229,16 @@ class BaseRLTrainer:
     def superstep(self, collect, update, timings):
         """``parallel.ddppo``'s superstep over the trainer's mesh, its
         collect and update timed into ``timings`` (each ending in a device
-        synchronise)."""
+        synchronise), and spans of the stream's time when tracing is on."""
         return ddppo.make_superstep(collect, update, self.mesh, timer=self._timer(timings))
 
     def _timer(self, timings):
         @contextlib.contextmanager
         def timed(name: str) -> Iterator[None]:
-            with timings.time(name):
+            with timings.time(name, stream=True):
                 yield
-                self._sync()
+                with profiling.span("superstep.sync"):
+                    self._sync()
 
         return timed
 
@@ -289,9 +291,10 @@ class BaseRLTrainer:
         streamer = getattr(self.env, "streamer", None)
         if streamer is None:
             return carry
-        state = carry.env_state
-        order = streamer.refresh(self.env.episode_cursor(state).cpu().numpy())
-        return carry._replace(env_state=self.env.refresh_ep_order(state, order))
+        with profiling.span("trainer.refresh_episode_stream"):
+            state = carry.env_state
+            order = streamer.refresh(self.env.episode_cursor(state).cpu().numpy())
+            return carry._replace(env_state=self.env.refresh_ep_order(state, order))
 
     def _sync(self) -> None:
         """Wait for the card (the trainers' Timings end their parts so)."""

@@ -55,7 +55,7 @@ from avlen_tpu_torch.utils import preemption
 from avlen_tpu_torch.utils.checkpoint import merge_matching_params, save_checkpoint
 from avlen_tpu_torch.utils.flax_bridge import adam_to_flax, load_adam_flax, load_flax_params, to_flax_params
 from avlen_tpu_torch.utils.logging import logger
-from avlen_tpu_torch.utils.profiling import Timings
+from avlen_tpu_torch.utils.profiling import Timings, span
 from avlen_tpu_torch.utils.tb import TensorboardWriter
 
 
@@ -236,17 +236,22 @@ class SaviTrainer(BaseRLTrainer):
         permutation of the env slots per epoch) replaces the draws from the
         trainer's PPO generator; ``grad_reduce`` (DD-PPO's gradient average)
         acts before every optimizer step. Returns the averaged losses as
-        tensors, with ``belief_loss`` under online belief training."""
+        tensors, with ``belief_loss`` under online belief training. Spans:
+        ``update`` and ``update.belief_step`` on the stream's time too,
+        ``update.gae``, and those of ``ppo_update``."""
         cfg = self.ppo_cfg
-        adv, ret = compute_gae(
-            batch.rewards, batch.values, batch.bootstrap_value,
-            1.0 - batch.dones.float(), cfg.gamma, cfg.tau,
-        )
-        stats = ppo_update(batch, adv, ret, self.evaluate_actions, self.optimizer, cfg,
-                           generator=self.ppo_generator, perms=perms, grad_reduce=grad_reduce)
-        if self.belief_optimizer is not None:
-            stats["belief_loss"] = self.belief_train_step(batch, grad_reduce)
-        return stats
+        with span("update", stream=True):
+            with span("update.gae"):
+                adv, ret = compute_gae(
+                    batch.rewards, batch.values, batch.bootstrap_value,
+                    1.0 - batch.dones.float(), cfg.gamma, cfg.tau,
+                )
+            stats = ppo_update(batch, adv, ret, self.evaluate_actions, self.optimizer, cfg,
+                               generator=self.ppo_generator, perms=perms, grad_reduce=grad_reduce)
+            if self.belief_optimizer is not None:
+                with span("update.belief_step", stream=True):
+                    stats["belief_loss"] = self.belief_train_step(batch, grad_reduce)
+            return stats
 
     def belief_train_step(self, batch: RolloutBatch, grad_reduce=identity_grad_reduce) -> torch.Tensor:
         """One Adam step of the location regression: the MSE to the goal

@@ -27,6 +27,7 @@ from avlen_tpu_torch.ops.mapping import depth_to_egomap
 from avlen_tpu_torch.sim.graph import UNREACHABLE
 from avlen_tpu_torch.sim.mp3d_utils import mp3d_id_to_task_id, task_id_to_mp3d_id
 from avlen_tpu_torch.sim.scene import SceneBank, serves_spectra
+from avlen_tpu_torch.utils.profiling import span
 
 STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT = 0, 1, 2, 3
 
@@ -261,6 +262,15 @@ class BatchedAudioNavEnv:
 
     def _step_impl(self, state: EnvState, actions: torch.Tensor, query: QueryInfo,
                    consts: Optional[Dict[str, torch.Tensor]] = None):
+        with span("env.dynamics"):
+            next_state, r, done, metrics = self._dynamics(state, actions, query, consts)
+        obs = self._observe(next_state)
+        return next_state, StepOutput(obs=obs, reward=r, done=done, metrics=metrics)
+
+    def _dynamics(self, state: EnvState, actions: torch.Tensor, query: QueryInfo,
+                  consts: Optional[Dict[str, torch.Tensor]] = None):
+        """Moves, rewards, measures and auto-resets every slot: (next state,
+        reward, done, metrics)."""
         cfg = self.config
         tables = self.bank.tables
 
@@ -377,16 +387,51 @@ class BatchedAudioNavEnv:
             new_episode=done,
             ep_order=state.ep_order,
         )
-        obs = self._observe(next_state)
-        return next_state, StepOutput(obs=obs, reward=r, done=done, metrics=metrics)
+        return next_state, r, done, metrics
 
     # ------------------------------------------------------------------
     def _observe(self, state: EnvState) -> Dict[str, torch.Tensor]:
         cfg = self.config
+        sensors = set(cfg.sensors)
+        with span("env.audio"):
+            obs = self._observe_audio(state, sensors)
+        with span("env.frames"):
+            obs.update(self._observe_frames(state, sensors))
+
+        b = state.node.shape[0]
+        if "category" in sensors:
+            obs["category"] = F.one_hot(state.category, cfg.num_categories).float()
+        if "mpcat40_index" in sensors:
+            # MPCAT40Index sensor (soundspaces/tasks/nav.py:515-569): the
+            # episode's category as its raw mpcat40 index, (B, 1)
+            table = self._task_to_mp3d
+            obs["mpcat40_index"] = table[torch.clamp(state.category, 0, table.shape[0] - 1)][:, None]
+        if "category_belief" in sensors:
+            obs["category_belief"] = torch.zeros((b, cfg.num_categories), dtype=torch.float32, device=self.device)
+        if "location_belief" in sensors:
+            obs["location_belief"] = torch.zeros((b, 2), dtype=torch.float32, device=self.device)
+        if "pose" in sensors:
+            obs["pose"] = self._pose(state)
+        if "pointgoal_with_gps_compass" in sensors:
+            # goal in the agent's base frame: X forward, Y rightward (nav.py:290-330)
+            tables = self.bank.tables
+            d = tables["positions"][state.scene, state.goal_node] - tables["positions"][state.scene, state.node]
+            th = state.rot.float() * (math.pi / 2)
+            fwd = -d[:, 0] * torch.sin(th) - d[:, 2] * torch.cos(th)
+            rgt = d[:, 0] * torch.cos(th) - d[:, 2] * torch.sin(th)
+            obs["pointgoal_with_gps_compass"] = torch.stack([fwd, rgt], dim=1)
+        if "collision" in sensors:
+            obs["collision"] = state.collided.float()[:, None]
+        if "oracle_action" in sensors:
+            obs["oracle_action"] = self.oracle_action(state)[:, None].float()
+        return obs
+
+    def _observe_audio(self, state: EnvState, sensors) -> Dict[str, torch.Tensor]:
+        """The spectrogram and audiogoal sensors: the bank's gather, or the
+        RIR gather and ``render_audiogoal``."""
+        cfg = self.config
         bank = self.bank
         obs: Dict[str, torch.Tensor] = {}
-        sensors = set(cfg.sensors)
-
         use_bank = bank.spec_bank is not None and not cfg.has_distractor and "audiogoal" not in sensors
         if "spectrogram" in sensors and use_bank:
             # precomputed spectrogram bank (simulator.py:723-734) as one gather
@@ -435,7 +480,14 @@ class BatchedAudioNavEnv:
                 obs["audiogoal"] = audio
             if "spectrogram" in sensors:
                 obs["spectrogram"] = spec
+        return obs
 
+    def _observe_frames(self, state: EnvState, sensors) -> Dict[str, torch.Tensor]:
+        """The rgb, depth, semantic and egomap sensors, gathered from the
+        frame banks."""
+        cfg = self.config
+        bank = self.bank
+        obs: Dict[str, torch.Tensor] = {}
         if "rgb" in sensors and bank.rgb is not None:
             obs["rgb"] = bank.rgb[state.scene, state.node, state.rot]
         if "depth" in sensors and bank.depth is not None:
@@ -461,33 +513,6 @@ class BatchedAudioNavEnv:
             # [obstacle, explored] map
             obs["egomap"] = depth_to_egomap(bank.depth[state.scene, state.node, state.rot],
                                             map_size=cfg.egomap_size, resolution=cfg.egomap_resolution)
-
-        b = state.node.shape[0]
-        if "category" in sensors:
-            obs["category"] = F.one_hot(state.category, cfg.num_categories).float()
-        if "mpcat40_index" in sensors:
-            # MPCAT40Index sensor (soundspaces/tasks/nav.py:515-569): the
-            # episode's category as its raw mpcat40 index, (B, 1)
-            table = self._task_to_mp3d
-            obs["mpcat40_index"] = table[torch.clamp(state.category, 0, table.shape[0] - 1)][:, None]
-        if "category_belief" in sensors:
-            obs["category_belief"] = torch.zeros((b, cfg.num_categories), dtype=torch.float32, device=self.device)
-        if "location_belief" in sensors:
-            obs["location_belief"] = torch.zeros((b, 2), dtype=torch.float32, device=self.device)
-        if "pose" in sensors:
-            obs["pose"] = self._pose(state)
-        if "pointgoal_with_gps_compass" in sensors:
-            # goal in the agent's base frame: X forward, Y rightward (nav.py:290-330)
-            tables = self.bank.tables
-            d = tables["positions"][state.scene, state.goal_node] - tables["positions"][state.scene, state.node]
-            th = state.rot.float() * (math.pi / 2)
-            fwd = -d[:, 0] * torch.sin(th) - d[:, 2] * torch.cos(th)
-            rgt = d[:, 0] * torch.cos(th) - d[:, 2] * torch.sin(th)
-            obs["pointgoal_with_gps_compass"] = torch.stack([fwd, rgt], dim=1)
-        if "collision" in sensors:
-            obs["collision"] = state.collided.float()[:, None]
-        if "oracle_action" in sensors:
-            obs["oracle_action"] = self.oracle_action(state)[:, None].float()
         return obs
 
     def _pose(self, state: EnvState) -> torch.Tensor:
