@@ -14,7 +14,11 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
+from avlen_tpu_torch.models.graphed import GraphedCall
 from avlen_tpu_torch.models.resnet import ResNet18
+
+belief_graphs = GraphedCall("belief")  # BeliefPredictorNet.forward's graphs and counters
+fusion_graphs = GraphedCall("belief.fusion")  # update_beliefs' EMA: graphs and counters
 
 
 class BeliefState(NamedTuple):
@@ -48,7 +52,12 @@ class BeliefPredictorNet(nn.Module):
 
     def forward(self, spectrogram: torch.Tensor, category: Optional[torch.Tensor] = None):
         """spectrogram (B, F, T, 2); category (B, 21) one-hot for distractor
-        mode → (location (B, 2) | None, label logits (B, 21) | None)."""
+        mode → (location (B, 2) | None, label logits (B, 21) | None). On the
+        card with autograd off, a CUDA graph replay once its inputs' key
+        repeats (``models/graphed.py``)."""
+        return belief_graphs(self, self._forward, (spectrogram, category))
+
+    def _forward(self, spectrogram, category):
         label = self.classifier(spectrogram) if hasattr(self, "classifier") else None
         return self.location(spectrogram, category), label
 
@@ -89,13 +98,23 @@ def update_beliefs(
     current_pred_only: bool = False,
 ) -> Tuple[BeliefState, torch.Tensor, torch.Tensor]:
     """One belief refresh (BeliefPredictor.update, belief_predictor.py:141-206).
-    Returns (state, category_belief (B,21), location_belief (B,2))."""
+    Returns (state, category_belief (B,21), location_belief (B,2)). On the
+    card with autograd off, the towers (``net``) and the EMA are each a CUDA
+    graph replay once their inputs' key repeats (``models/graphed.py``)."""
     spec = obs["spectrogram"]
-    pose = obs["pose"]
+    location, label_logits = net(spec, obs.get("category"))
+
+    def fuse(*inputs):
+        return _fuse(*inputs, weighting_factor, current_pred_only)
+
+    return fusion_graphs(None, fuse, (belief_state, spec, obs["pose"], new_episode, location, label_logits),
+                         (weighting_factor, current_pred_only))
+
+
+def _fuse(belief_state, spec, pose, new_episode, location, label_logits, weighting_factor, current_pred_only):
+    """The EMA of the towers' predictions into the belief state."""
     b = spec.shape[0]
     has_audio = (spec.abs().sum(dim=(1, 2, 3)) != 0).float()
-
-    location, label_logits = net(spec, obs.get("category"))
     w = weighting_factor
     has_pg = torch.where(new_episode, 0.0, belief_state.has_pointgoal)
     has_lb = torch.where(new_episode, 0.0, belief_state.has_label)

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from avlen_tpu_torch.models.encoders import AudioCNN
+from avlen_tpu_torch.models.graphed import GraphedCall
 from avlen_tpu_torch.models.init import linear
 from avlen_tpu_torch.models.policy import (
     CategoricalHead,
@@ -30,6 +31,8 @@ from avlen_tpu_torch.models.policy import (
 from avlen_tpu_torch.models.smt import SMTStateEncoder
 from avlen_tpu_torch.models.smt_cnn import SMTCNN
 from avlen_tpu_torch.utils.profiling import span
+
+act_graphs = GraphedCall("act")  # SMTPolicy.act's graphs and counters
 
 
 class AudioNavSMTNet(nn.Module):
@@ -132,6 +135,14 @@ class SMTPolicy(nn.Module):
 
     def act(self, obs, prev_actions, memory_feats, memory_valid,
             generator: Optional[torch.Generator] = None, deterministic: bool = False):
+        """(action, log-prob, value, step features, logits). On the card
+        with autograd off, a CUDA graph replay of the forward once its
+        inputs' key repeats (``models/graphed.py``; the spans inside are
+        then not opened)."""
+        return act_graphs(self, lambda *a: self._act(*a, generator, deterministic),
+                          (obs, prev_actions, memory_feats, memory_valid), (deterministic,), generator)
+
+    def _act(self, obs, prev_actions, memory_feats, memory_valid, generator, deterministic):
         with span("act.towers"):
             x = self.net.get_features(obs, prev_actions)
         with span("act.smt"):

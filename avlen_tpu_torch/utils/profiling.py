@@ -20,7 +20,9 @@ own name, so the loop's parts are the roots of the span tree.
 ``torch.profiler.record_function`` does) of each span's name, and
 ``export(profile)`` then gives the offset from the recorder's clock to that
 profiler's event clock, so that the in-memory spans join the device trace. The kernel wrappers' ``.launches`` counters
-live beside their kernels (``ops/*_cuda.py``).
+live beside their kernels (``ops/*_cuda.py``). The acting forwards' CUDA-graph runners (``models/graphed.py``)
+register their counters in ``GRAPH_COUNTERS``, and ``export`` gives their counts over the recording. A graph replay
+opens none of the spans inside the forward it replays (``act.towers``, ``act.smt``, ``act.heads``).
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ class _Off:
 _OFF = _Off()
 _on = False
 _rec: Optional["Recorder"] = None
+# each CUDA-graph entry point's counters (captures, replays, eager_calls), by name
+GRAPH_COUNTERS: Dict[str, Dict[str, int]] = {}
 
 
 def span(name: str, stream: bool = False, cpu: bool = False, step: Optional[int] = None):
@@ -133,8 +137,9 @@ def export(profile=None) -> Optional[Dict]:
     start inside that interval); the collector's pauses as
     (generation, start ns, ns, round); the rounds begun; and the offset
     from the recorder's clock to ``profile``'s (a finished
-    ``torch.profiler.profile``) event clock, else None. None before any
-    recording."""
+    ``torch.profiler.profile``) event clock, else None; and each graphed
+    entry point's captures, replays and eager calls since ``enable``. None
+    before any recording."""
     return _rec.export(profile) if _rec is not None else None
 
 
@@ -156,6 +161,7 @@ class Recorder:
         self.cpu_ns: List[List[int]] = []
         self.gc: List[List[int]] = []
         self.gc_t0 = 0
+        self.graphs0 = {name: dict(c) for name, c in GRAPH_COUNTERS.items()}
 
     def open(self, name: str) -> int:
         i = self.n
@@ -210,9 +216,11 @@ class Recorder:
             agg = by_name.get(spans["name"][i])
             if agg is not None:
                 agg["stream_ns"] = agg.get("stream_ns", 0) + ns
+        graphs = {name: {k: v - self.graphs0.get(name, {}).get(k, 0) for k, v in c.items()}
+                  for name, c in GRAPH_COUNTERS.items()}
         return {"by_name": by_name, "spans": spans, "stream_ns": stream_ns, "cpu_ns": list(self.cpu_ns),
                 "gc": list(self.gc), "rounds": self.round_id, "annotated": list(self.annotated),
-                "clock_offset_ns": self.clock_offset(profile) if profile is not None else None}
+                "clock_offset_ns": self.clock_offset(profile) if profile is not None else None, "graphs": graphs}
 
     def clock_offset(self, profile) -> Optional[int]:
         """The median of (profiler start − recorder start) over the

@@ -1098,13 +1098,9 @@ def check_update_reference(dev, cfg=None, n: int = 12):
 
 
 def _kernel_wrappers():
-    from avlen_tpu_torch.ops import irfft_cuda, smt_cuda, spectrogram_cuda
+    from avlen_tpu_torch.ops import KERNELS
 
-    return {
-        "smt_encode": smt_cuda.smt_encode,
-        "partial_irfft": irfft_cuda.partial_irfft,
-        "spectrogram": spectrogram_cuda.spectrogram,
-    }
+    return {name: getattr(module, name) for name, module in KERNELS.items()}
 
 
 def run_main_path(dev):

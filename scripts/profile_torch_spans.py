@@ -19,6 +19,10 @@ Runs portbench's ``savi.train.e32`` cell once on the card, as
 - ``off``: ``--trace 0`` as the benchmark runs it;
 - ``offcost``: on the host alone, the ns of one span site with tracing off.
 
+With the recorder on, the line also gives the window's CUDA-graph counters
+of the acting forwards and the share of their calls that replayed
+(``window.graphs``, ``window.replay_share``).
+
 Prints one JSON line, also written to ``DIR/<mode>-<seed>.json``.
 """
 
@@ -57,7 +61,8 @@ def per_step(agg, steps, key="total_ns"):
 def window_split(sp, rec, info):
     """Per acting step ms of each span over the window, and the derived
     numbers: the loop's own time, the four-part sum against the step's
-    median, the collect's CPU share, the collector's pauses a round."""
+    median, the collect's CPU share, the collector's pauses a round, and
+    each graphed entry point's calls and the share of them replayed."""
     by = sp["by_name"]
     steps = by["collect.step"]["count"]
     names = sp["spans"]["name"]
@@ -78,6 +83,8 @@ def window_split(sp, rec, info):
         "gc_pause_ms_per_round": sum(p[2] for p in sp["gc"]) / 1e6 / rounds,
         "gc_pauses_by_gen": [sum(1 for p in sp["gc"] if p[0] == k) for k in range(3)],
         "gc_longest_ms_by_gen": [max([p[2] / 1e6 for p in sp["gc"] if p[0] == k], default=0.0) for k in range(3)],
+        "graphs": sp.get("graphs", {}),
+        "replay_share": {n: c["replays"] / max(sum(c.values()), 1) for n, c in sp.get("graphs", {}).items()},
         "update_ms": per_step(by.get("update"), sp["rounds"] or 1),
         "update_stream_ms": per_step(by.get("update"), sp["rounds"] or 1, "stream_ns"),
     }
@@ -193,7 +200,7 @@ def run(args):
             w = (mark[0][2], mark[0][2] + mark[0][3])
             names = tuple(labels) + profiling.SPAN_NAMES + ("portbench.window",)
             trace = harness.reduce_trace(events, names, w)
-            state["profiled"] = dict(runtime_split(prof, sp), by_name=sp["by_name"],
+            state["profiled"] = dict(runtime_split(prof, sp), by_name=sp["by_name"], graphs=sp["graphs"],
                                      idle_gaps=trace["idle_gaps"], gaps_over_1ms=long_gaps(events, names, w,
                                                                                            trace["ops"]),
                                      busy_s=trace["busy_s"], window_s=trace["window_s"])
