@@ -37,6 +37,7 @@ from avlen_tpu_torch.dialog.instruction_bank import APP_PATH_LEN, build_instruct
 from avlen_tpu_torch.dialog.speaker.speaker import GEOM_DIM, NUM_CATEGORIES, Speaker
 from avlen_tpu_torch.dialog.speaker.vocab import Vocabulary
 from avlen_tpu_torch.models.clip_text import CONTEXT_LENGTH, tokenize
+from avlen_tpu_torch.utils import profiling
 from avlen_tpu_torch.utils.logging import logger
 
 
@@ -44,10 +45,11 @@ def speaker_from_config(cfg, tables_list, rgb_bank=None, device: Union[str, torc
     """The Speaker of the instruction channel, from SPEAKER (the reference
     always serves its pretrained neural speaker, speaker_pipeline.py:27).
 
-    BACKEND template or neural; a neural speaker's weights, vocabulary and
-    hidden size come from the ``speaker.pth`` at CKPT_PATH (either
-    package's ``train_speaker`` output; FileNotFoundError when it is
-    missing), and its ``world_feat_dim`` must match USE_PANO_FEATURES.
+    BACKEND template or neural; a neural speaker's weights, vocabulary,
+    hidden size and word-embedding width come from the ``speaker.pth`` at
+    CKPT_PATH (either package's ``train_speaker`` output; FileNotFoundError
+    when it is missing), and its ``world_feat_dim`` must match
+    USE_PANO_FEATURES.
     USE_PANO_FEATURES encodes ``rgb_bank`` with a PanoramaEncoder (a fresh
     init, seeded 0, as the JAX package draws its own each call). The
     speaker and the encoder run on ``device``."""
@@ -69,7 +71,7 @@ def speaker_from_config(cfg, tables_list, rgb_bank=None, device: Union[str, torc
 
     vocab = Vocabulary()
     neural_params = None
-    hidden = 256
+    hidden, word_emb = 256, 128
     if sp_cfg.CKPT_PATH:
         if not os.path.exists(sp_cfg.CKPT_PATH):
             raise FileNotFoundError(f"speaker checkpoint not found: {sp_cfg.CKPT_PATH}")
@@ -82,6 +84,7 @@ def speaker_from_config(cfg, tables_list, rgb_bank=None, device: Union[str, torc
         vocab = Vocabulary.from_words([w.decode() if isinstance(w, bytes) else str(w) for w in raw])
         neural_params = ckpt["state_dict"]
         hidden = int(ckpt.get("hidden_size", 256))
+        word_emb = int(ckpt.get("word_emb", 128))
         want_feat = GEOM_DIM + NUM_CATEGORIES + (pano.shape[-1] if pano is not None else 0)
         have_feat = int(ckpt.get("world_feat_dim", want_feat))
         if have_feat != want_feat:
@@ -90,16 +93,20 @@ def speaker_from_config(cfg, tables_list, rgb_bank=None, device: Union[str, torc
                 f"configured feature layout ({want_feat}); check SPEAKER.USE_PANO_FEATURES"
             )
     return Speaker(positions, backend="neural", vocab=vocab, neural_params=neural_params,
-                   hidden_size=hidden, pano_features=pano, device=device)
+                   hidden_size=hidden, pano_features=pano, device=device, word_emb=word_emb)
 
 
 class HostSpeakerInstructionSource:
     """The speaker per query, on the host (reference: on-demand
     Speaker.generate_instr, speaker_pipeline.py:110-124).
 
-    Called once a step with the whole env batch: only envs whose ``newly``
-    flag is set are computed, and every (scene, node, rot, goal) is
-    memoized, so the host work falls to near zero."""
+    Called with the whole env batch: only envs whose ``newly`` flag is set
+    are computed, and every (scene, node, rot, goal) is memoized, so the
+    host work falls to near zero. Each decode opens the span
+    ``speaker.decode``; the counters ``speaker.queries``,
+    ``speaker.cache_hits`` and ``speaker.decodes`` count the envs asked,
+    those answered from the memo and the speaker's decodes (``host_calls``
+    counts the steps on which some env asked)."""
 
     def __init__(self, speaker: Speaker, tables_list: Sequence, context_length: int = CONTEXT_LENGTH):
         self.speaker = speaker
@@ -113,13 +120,16 @@ class HostSpeakerInstructionSource:
         key = (s, n, r, g)
         hit = self._cache.get(key)
         if hit is not None:
+            profiling.count("speaker.cache_hits")
             return hit
         path = shortest_path_prefix(self.tables[s], n, g, max_len=APP_PATH_LEN + 1)
         if len(path) < 2:
             toks = self._stop_tokens
         else:
             heading = (270 - r * 90) % 360
-            text = self.speaker.instruction_text([{"heading": heading, "scene": s, "path": path}])[0]
+            with profiling.span("speaker.decode"):
+                text = self.speaker.instruction_text([{"heading": heading, "scene": s, "path": path}])[0]
+            profiling.count("speaker.decodes")
             toks = tokenize([text], context_length=self.context_length)[0].astype(np.int32)
         self._cache[key] = toks
         return toks
@@ -131,6 +141,7 @@ class HostSpeakerInstructionSource:
         idx = np.nonzero(newly)[0]
         if idx.size:
             self.host_calls += 1
+            profiling.count("speaker.queries", int(idx.size))
             for i in idx:
                 out[i] = self._lookup(int(scene[i]), int(node[i]), int(rot[i]), int(goal[i]))
         return out

@@ -122,12 +122,12 @@ class AttnDecoderLSTM(nn.Module):
 
 class Seq2SeqSpeaker(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int = 256, world_feat_dim: int = 8,
-                 max_decode_len: int = 40, generator: Optional[torch.Generator] = None):
+                 max_decode_len: int = 40, word_emb: int = 128, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.vocab_size, self.hidden_size = vocab_size, hidden_size
+        self.vocab_size, self.hidden_size, self.word_emb = vocab_size, hidden_size, word_emb
         self.world_feat_dim, self.max_decode_len = world_feat_dim, max_decode_len
         self.encoder = PathEncoderLSTM(world_feat_dim, hidden_size, generator=generator)
-        self.decoder = AttnDecoderLSTM(vocab_size, hidden_size, generator=generator)
+        self.decoder = AttnDecoderLSTM(vocab_size, hidden_size, word_emb, generator=generator)
 
     def encode(self, actions, world_feats, lengths):
         return self.encoder(actions, world_feats, lengths)

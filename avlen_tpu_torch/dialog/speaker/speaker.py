@@ -49,6 +49,7 @@ class Speaker:
         pano_features=None,
         beam_size: int = 1,
         device: Union[str, torch.device] = "cuda",
+        word_emb: int = 128,
     ):
         """``pano_features``: optional (S, N, 4, D) view-feature bank; world
         features then become geometry ⊕ the heading-aligned view feature of
@@ -68,14 +69,14 @@ class Speaker:
         self.device = torch.device(device)
         self.model = None
         if backend == "neural":
-            self._init_neural(neural_params, hidden_size)
+            self._init_neural(neural_params, hidden_size, word_emb)
 
-    def _init_neural(self, neural_params: Optional[Mapping], hidden_size: int) -> None:
+    def _init_neural(self, neural_params: Optional[Mapping], hidden_size: int, word_emb: int) -> None:
         from avlen_tpu_torch.dialog.speaker.model import Seq2SeqSpeaker
         from avlen_tpu_torch.utils.flax_bridge import load_flax_params
 
         self.model = Seq2SeqSpeaker(
-            vocab_size=len(self.vocab), hidden_size=hidden_size, world_feat_dim=self.feat_dim,
+            vocab_size=len(self.vocab), hidden_size=hidden_size, world_feat_dim=self.feat_dim, word_emb=word_emb,
             generator=torch.Generator().manual_seed(0),
         )
         if neural_params is not None:

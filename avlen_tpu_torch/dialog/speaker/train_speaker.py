@@ -11,8 +11,9 @@ ramped over the first half of training; the draws come from a
 ``torch.Generator`` seeded ``seed``.
 
 ``speaker.pth`` is written in the JAX package's format: ``state_dict`` as
-the Flax tree (``to_flax_params``), ``vocab``, ``hidden_size`` and
-``world_feat_dim``, so either package loads the other's file.
+the Flax tree (``to_flax_params``), ``vocab``, ``hidden_size``,
+``word_emb`` and ``world_feat_dim``, so either package loads the other's
+file.
 
     python -m avlen_tpu_torch.dialog.speaker.train_speaker
         [--output data/pretrained_weights/speaker] [--steps N] [--scenes S]
@@ -166,6 +167,7 @@ def train_speaker(
             # the model's geometry, so loaders rebuild the exact net (and
             # fail loudly on a pano-feature on/off mismatch)
             "hidden_size": hidden_size,
+            "word_emb": model.word_emb,
             "world_feat_dim": feat_dim,
         })
         if stats is not None:

@@ -38,7 +38,7 @@ import collections
 import dataclasses
 import os
 import time
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -75,7 +75,7 @@ from avlen_tpu_torch.rl.trainers.base import (
 )
 from avlen_tpu_torch.rl.trainers.savi import SaviTrainer
 from avlen_tpu_torch.sim.builder import construct_batched_env
-from avlen_tpu_torch.utils import preemption
+from avlen_tpu_torch.utils import preemption, profiling
 from avlen_tpu_torch.utils.checkpoint import save_checkpoint
 from avlen_tpu_torch.utils.flax_bridge import (adam_to_flax, flax_path, load_adam_flax, load_flax_params,
                                                 to_flax_params)
@@ -267,6 +267,7 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
 
         def clip_embed(tokens):
             self.clip_calls += 1
+            profiling.count("clip.rows", tokens.shape[0])
             return dialog_p.clip_embed(tokens)
 
         def value_option(obs, pa, mf, mv, qs, lqi):
@@ -570,67 +571,76 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         budget = self.eval_rollout_budget(num_episodes, b, self.env.config.max_episode_steps)
         return carry, consts, gen, min(cfg.TEST_EPISODE_COUNT, num_episodes), budget
 
-    def _eval_checkpoint(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
-        """Interactive eval (ppo_trainer.py:1313-2761): π_q, π_g and π_l of
-        the checkpoint, the configured query strategy (QS_METHOD with the
-        query budget and gap) and π_l's argmax, π_g and π_q sampled from a
-        generator seeded SEED + 13; each episode counted once until
-        TEST_EPISODE_COUNT; ``test_log_ckpt{i}_{sound}.txt`` and
-        ``eval_stats_ckpt{i}_{sound}.npz`` per episode in MODEL_DIR and the
-        means under ``val/*``. A dialog config takes the dialog protocol
-        (a ``vln/ckpt`` holds π_l only and must never load as π_q)."""
-        if is_dialog_mode(self.config):
-            return self._eval_checkpoint_dialog(checkpoint_path, writer, checkpoint_index)
+    def eval_start(self, checkpoint_path: str, writer=None, checkpoint_index: int = 0) -> "InteractiveEval":
+        """An interactive eval of the checkpoint, not yet run: π_q, π_g and
+        π_l loaded from it, the eval split dealt exactly once, π_g and π_q
+        to sample from a generator seeded SEED + 13, and the video hook of
+        ``writer`` (None without VIDEO_OPTION)."""
         ckpt = self.load_checkpoint(checkpoint_path)
         carry, consts, gen, count, budget = self._eval_setup(ckpt, 13)
-        cfg = self.config
         load_flax_params(self.option_policy, ckpt["state_dict"])
         if "state_dict_goal" in ckpt:
             load_flax_params(self.goal_policy, ckpt["state_dict_goal"])
         if "state_dict_vln" in ckpt:
             load_flax_params(self.dialog_policy, ckpt["state_dict_vln"])
+        return InteractiveEval(carry=carry, consts=consts, generator=gen, count=count, budget=budget,
+                               videos=self.eval_videos(writer, checkpoint_index))
 
-        stats: Dict[str, list] = collections.defaultdict(list)
-        seen: set = set()
-        log_lines = []
-        records = collections.defaultdict(list)
-        videos = self.eval_videos(writer, checkpoint_index)
-        for _ in range(budget):
-            if len(seen) >= count:
+    def eval_collect(self, ev: "InteractiveEval") -> Dict:
+        """One collect of an interactive eval (the configured query strategy
+        with its budget and gap, π_l's argmax) and its episode accounting:
+        each episode that ends in it is counted once, until TEST_EPISODE_COUNT.
+        Advances ``ev``; returns the collect's trajectory."""
+        ev.carry, traj = self.collect(ev.carry, deterministic=True, generator=ev.generator, consts=ev.consts)
+        if ev.videos is not None:
+            ev.videos(traj["dones"], traj["masks"], traj["metrics"])
+        dones = traj["dones"].cpu().numpy()
+        ep_ids = traj["metrics"]["episode"].cpu().numpy()
+        metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
+        qcount = traj["query_count"].cpu().numpy()
+        rlmask = traj["rl_mask"].cpu().numpy()
+        for t, bi in zip(*np.nonzero(dones)):
+            eid = int(ep_ids[t, bi])
+            if eid in ev.seen or ev.done:
+                continue
+            ev.seen.add(eid)
+            for k in metrics:
+                ev.stats[k].append(metrics[k][t, bi])
+            ev.stats["query_count"].append(qcount[t, bi])
+            ev.records["episode"].append(eid)
+            ev.records["query_count"].append(float(qcount[t, bi]))
+            for k in ("success", "spl", "na"):
+                ev.records[k].append(float(metrics[k][t, bi]))
+            ev.log_lines.append(
+                f"episode {eid}: success={metrics['success'][t, bi]:.0f} "
+                f"spl={metrics['spl'][t, bi]:.3f} sna={metrics['sna'][t, bi]:.3f} "
+                f"na={metrics['na'][t, bi]:.0f} queries={qcount[t, bi]:.0f} "
+                f"vln_steps={float((1.0 - rlmask[: t + 1, bi]).sum()):.0f}")
+        return traj
+
+    def _eval_checkpoint(self, checkpoint_path: str, writer, checkpoint_index: int = 0) -> Dict[str, float]:
+        """Interactive eval (ppo_trainer.py:1313-2761): ``eval_start``, then
+        ``eval_collect`` until TEST_EPISODE_COUNT episodes are counted or the
+        rollout budget is spent; ``test_log_ckpt{i}_{sound}.txt`` and
+        ``eval_stats_ckpt{i}_{sound}.npz`` per episode in MODEL_DIR and the
+        means under ``val/*``. A dialog config takes the dialog protocol
+        (a ``vln/ckpt`` holds π_l only and must never load as π_q)."""
+        if is_dialog_mode(self.config):
+            return self._eval_checkpoint_dialog(checkpoint_path, writer, checkpoint_index)
+        ev = self.eval_start(checkpoint_path, writer, checkpoint_index)
+        cfg = self.config
+        for _ in range(ev.budget):
+            if ev.done:
                 break
-            carry, traj = self.collect(carry, deterministic=True, generator=gen, consts=consts)
-            if videos is not None:
-                videos(traj["dones"], traj["masks"], traj["metrics"])
-            dones = traj["dones"].cpu().numpy()
-            ep_ids = traj["metrics"]["episode"].cpu().numpy()
-            metrics = {k: v.cpu().numpy() for k, v in traj["metrics"].items() if k not in METRIC_BLACKLIST}
-            qcount = traj["query_count"].cpu().numpy()
-            rlmask = traj["rl_mask"].cpu().numpy()
-            for t, bi in zip(*np.nonzero(dones)):
-                eid = int(ep_ids[t, bi])
-                if eid in seen or len(seen) >= count:
-                    continue
-                seen.add(eid)
-                for k in metrics:
-                    stats[k].append(metrics[k][t, bi])
-                stats["query_count"].append(qcount[t, bi])
-                records["episode"].append(eid)
-                records["query_count"].append(float(qcount[t, bi]))
-                for k in ("success", "spl", "na"):
-                    records[k].append(float(metrics[k][t, bi]))
-                log_lines.append(
-                    f"episode {eid}: success={metrics['success'][t, bi]:.0f} "
-                    f"spl={metrics['spl'][t, bi]:.3f} sna={metrics['sna'][t, bi]:.3f} "
-                    f"na={metrics['na'][t, bi]:.0f} queries={qcount[t, bi]:.0f} "
-                    f"vln_steps={float((1.0 - rlmask[: t + 1, bi]).sum()):.0f}")
-        self._last_eval_episode_ids = sorted(seen)
+            self.eval_collect(ev)
+        self._last_eval_episode_ids = sorted(ev.seen)
         os.makedirs(cfg.MODEL_DIR, exist_ok=True)
         with open(os.path.join(cfg.MODEL_DIR, f"test_log_ckpt{checkpoint_index}_{cfg.SOUND_TYPE}.txt"), "w") as f:
-            f.write("\n".join(log_lines) + "\n")
+            f.write("\n".join(ev.log_lines) + "\n")
         np.savez(os.path.join(cfg.MODEL_DIR, f"eval_stats_ckpt{checkpoint_index}_{cfg.SOUND_TYPE}.npz"),
-                 **{k: np.asarray(v) for k, v in records.items()})
-        means = {k: float(np.mean(v)) for k, v in stats.items()}
-        means.update(eval_episode_accounting(seen, count, "interactive"))
+                 **{k: np.asarray(v) for k, v in ev.records.items()})
+        means = {k: float(np.mean(v)) for k, v in ev.stats.items()}
+        means.update(eval_episode_accounting(ev.seen, ev.count, "interactive"))
         logger.info(f"interactive eval ckpt {checkpoint_index}: "
                     + ", ".join(f"{k}={v:.3f}" for k, v in means.items()))
         for k, v in means.items():
@@ -682,6 +692,29 @@ class InteractiveDDPPOTrainer(BaseRLTrainer):
         for k, v in means.items():
             writer.add_scalar(f"val_dialog/{k}", v, checkpoint_index)
         return means
+
+
+@dataclasses.dataclass
+class InteractiveEval:
+    """An interactive eval in progress (``InteractiveDDPPOTrainer.eval_start``):
+    the carry, the eval split's tables, the sampling generator, the episodes
+    to count and the rollout budget, the video hook, and the episodes
+    counted so far with their metrics, records and log lines."""
+
+    carry: InteractiveCarry
+    consts: Dict[str, torch.Tensor]
+    generator: torch.Generator
+    count: int
+    budget: int
+    videos: Optional[Callable] = None
+    seen: set = dataclasses.field(default_factory=set)
+    stats: Dict[str, list] = dataclasses.field(default_factory=lambda: collections.defaultdict(list))
+    records: Dict[str, list] = dataclasses.field(default_factory=lambda: collections.defaultdict(list))
+    log_lines: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.seen) >= self.count
 
 
 def is_dialog_mode(config) -> bool:

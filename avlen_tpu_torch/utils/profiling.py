@@ -23,6 +23,11 @@ profiler's event clock, so that the in-memory spans join the device trace. The k
 live beside their kernels (``ops/*_cuda.py``). The acting forwards' CUDA-graph runners (``models/graphed.py``)
 register their counters in ``GRAPH_COUNTERS``, and ``export`` gives their counts over the recording. A graph replay
 opens none of the spans inside the forward it replays (``act.towers``, ``act.smt``, ``act.heads``).
+
+``count(name, n)`` adds to a named counter of the recording while it is on
+(``COUNTER_NAMES`` lists them: the CLIP tower's rows, the host speaker's
+queries, cache hits and decodes), and ``export`` gives them. The CLIP
+tower's calls are ``InteractiveDDPPOTrainer.clip_calls``.
 """
 
 from __future__ import annotations
@@ -41,12 +46,15 @@ SPAN_NAMES = (
     "superstep.sync", "trainer.refresh_episode_stream",
     "collect", "collect.step", "collect.belief", "collect.act", "collect.env_step",
     "collect.bootstrap", "collect.stack",
+    "collect.option", "collect.dialog", "collect.instruction", "collect.clip", "speaker.decode",
     "act.towers", "act.smt", "act.heads",
     "env.dynamics", "env.audio", "env.frames",
     "update", "update.gae", "update.minibatch", "update.backward", "update.optimizer_step",
     "update.belief_step",
 )
 ANCHOR = SPAN_NAMES[0]
+# every counter name the program adds to
+COUNTER_NAMES = ("clip.rows", "speaker.queries", "speaker.cache_hits", "speaker.decodes")
 
 
 class Timings:
@@ -98,6 +106,13 @@ def span(name: str, stream: bool = False, cpu: bool = False, step: Optional[int]
     return _Span(_rec, name, stream, cpu, step)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _on:
+        counters = _rec.counters
+        counters[name] = counters.get(name, 0) + n
+
+
 def next_round() -> None:
     """The spans from here on belong to the next round (superstep)."""
     if _on:
@@ -138,8 +153,8 @@ def export(profile=None) -> Optional[Dict]:
     (generation, start ns, ns, round); the rounds begun; and the offset
     from the recorder's clock to ``profile``'s (a finished
     ``torch.profiler.profile``) event clock, else None; and each graphed
-    entry point's captures, replays and eager calls since ``enable``. None
-    before any recording."""
+    entry point's captures, replays and eager calls since ``enable``; and
+    the counters added to since ``enable``. None before any recording."""
     return _rec.export(profile) if _rec is not None else None
 
 
@@ -161,6 +176,7 @@ class Recorder:
         self.cpu_ns: List[List[int]] = []
         self.gc: List[List[int]] = []
         self.gc_t0 = 0
+        self.counters: Dict[str, int] = {}
         self.graphs0 = {name: dict(c) for name, c in GRAPH_COUNTERS.items()}
 
     def open(self, name: str) -> int:
@@ -220,7 +236,8 @@ class Recorder:
                   for name, c in GRAPH_COUNTERS.items()}
         return {"by_name": by_name, "spans": spans, "stream_ns": stream_ns, "cpu_ns": list(self.cpu_ns),
                 "gc": list(self.gc), "rounds": self.round_id, "annotated": list(self.annotated),
-                "clock_offset_ns": self.clock_offset(profile) if profile is not None else None, "graphs": graphs}
+                "clock_offset_ns": self.clock_offset(profile) if profile is not None else None, "graphs": graphs,
+                "counters": dict(self.counters)}
 
     def clock_offset(self, profile) -> Optional[int]:
         """The median of (profiler start − recorder start) over the

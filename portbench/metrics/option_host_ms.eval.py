@@ -1,0 +1,11 @@
+"""Host milliseconds of pi_q's act per acting step: the program's span ``collect.option``
+over the traced window, its total over its count."""
+
+UNIT = "ms"
+LAYER = "Policies (models/option_policy.py, models/dialog_policy.py)"
+MOVES = "step_ms_p95"
+
+
+def read(rec):
+    span = rec.get("span_totals", {}).get("collect.option")
+    return span["total_ns"] / span["count"] / 1e6 if span and span["count"] else None
